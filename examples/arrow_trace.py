@@ -1,6 +1,6 @@
 """Sample into Arrow record batches.
 
-Mirror of ``/root/reference/examples/arrow_trace.rs``: one RecordBatch per
+Mirror of nuts-rs ``examples/arrow_trace.rs``: one RecordBatch per
 chain with list-typed tensor columns (reference ``src/storage/arrow.rs``).
 """
 

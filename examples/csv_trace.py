@@ -1,6 +1,6 @@
 """Sample into CmdStan-compatible CSV files.
 
-Mirror of ``/root/reference/examples/csv_trace.rs``: one ``chain_{i}.csv``
+Mirror of nuts-rs ``examples/csv_trace.rs``: one ``chain_{i}.csv``
 per chain, cartesian-product column names for tensor parameters, warmup
 draws marked by negative ``sample_id`` (reference ``src/storage/csv.rs``).
 """

@@ -1,4 +1,4 @@
-"""Shard the PARAMETER axis of a huge-d model over the mesh (TPU-native).
+"""Shard the PARAMETER axis of a huge-d model over the mesh.
 
 The reference's large-d axis is its SIMD kernels benched to d=4567
 (``benches/sample.rs:126``) on one core.  Here the parameter dimension of
@@ -6,7 +6,7 @@ every state vector (positions, gradients, momenta, the NUTS checkpoint
 stacks, the mass matrix) shards over a ``"dim"`` mesh axis; every
 contraction inside the fused kernels — U-turn dots, kinetic energies,
 logdet sums, the model's own log-density reduction — becomes a
-device-local partial sum completed by one ``psum`` riding ICI
+device-local partial sum completed by one ``psum``
 (``nuts_rs_tpu/parallel/axis.py``).  A 2-D ``(chains, dim)`` mesh composes
 this with chain sharding and cross-chain adaptation.
 

@@ -1,6 +1,6 @@
 """Sample into the in-memory trace (dense arrays per variable).
 
-Mirror of ``/root/reference/examples/hashmap_storage.rs`` and
+Mirror of nuts-rs ``examples/hashmap_storage.rs`` and
 ``ndarray_storage.rs`` combined: the default backend collects every variable
 into numpy arrays shaped ``[chain, draw, ...]`` in ArviZ-style groups
 (``posterior``, ``sample_stats``, ``warmup_*``).

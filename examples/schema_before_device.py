@@ -2,7 +2,7 @@
 
 The reference reflects the full trace schema from ``Settings``
 (src/sampler.rs:73-162) so storage can be laid out before sampling starts.
-``nuts_rs_tpu.schema(model, settings)`` is the TPU-native analog: the chain
+``nuts_rs_tpu.schema(model, settings)`` is the JAX analog: the chain
 state and every phase runner are traced abstractly with ``jax.eval_shape``
 — pure host-side shape arithmetic, ZERO device allocation (tested with a
 ``jax.live_arrays()`` diff) — and the result matches

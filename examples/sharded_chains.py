@@ -1,9 +1,9 @@
-"""Shard thousands of chains over a TPU mesh (TPU-native extension).
+"""Shard thousands of chains over a device mesh (beyond the reference).
 
 The reference parallelizes with one OS thread per chain
-(``src/sampler.rs:1286-1326``).  Here the chain axis is vmapped on-chip and
+(``src/sampler.rs:1286-1326``).  Here the chain axis is vmapped on each device and
 sharded over a ``jax.sharding.Mesh`` axis with ``shard_map``; cross-chain
-adaptation pools Welford statistics with ``psum`` over ICI — a capability a
+adaptation pools Welford statistics with ``psum`` — a capability a
 single-process CPU sampler cannot express.
 
 Run on CPU with a virtual 8-device mesh:

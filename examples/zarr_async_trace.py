@@ -1,6 +1,6 @@
 """Sample into Zarr through the native C++ async writer.
 
-Mirror of ``/root/reference/examples/zarr_async_trace.rs``: same layout as
+Mirror of nuts-rs ``examples/zarr_async_trace.rs``: same layout as
 the sync backend, but chunk compression + file I/O run on a native worker
 pool with bounded-queue backpressure (``native/trace_writer.cpp``; the
 reference uses a tokio ``JoinSet`` with ``max_queued_writes``,

@@ -1,6 +1,6 @@
 """Sample into an ArviZ-compatible Zarr store and read it back.
 
-Mirror of ``/root/reference/examples/zarr_trace.rs``: MV-normal model,
+Mirror of nuts-rs ``examples/zarr_trace.rs``: MV-normal model,
 parallel sampler, synchronous Zarr backend, then a readback of the
 ``posterior`` and ``sample_stats`` groups plus the settings attrs.
 """

@@ -1,7 +1,7 @@
-"""nuts_rs_tpu — a TPU-native NUTS/HMC inference engine.
+"""nuts_rs_tpu — a batched NUTS/HMC inference engine in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of
-pymc-devs/nuts-rs (reference mounted at /root/reference): NUTS with diagonal /
+A from-scratch JAX/XLA re-design with the capabilities of
+pymc-devs/nuts-rs: NUTS with diagonal /
 low-rank / normalizing-flow mass-matrix adaptation, MCLMC, dual-averaging and
 Adam step-size adaptation, multi-chain sampling vmapped within a chip and
 sharded over device meshes, and progressive ArviZ-compatible trace storage.

@@ -1,6 +1,6 @@
 """Low-rank mass-matrix estimation from a window of draws and gradients.
 
-TPU-native rework of nuts-rs ``src/transform/adapt/low_rank.rs``: the
+Batched rework of nuts-rs ``src/transform/adapt/low_rank.rs``: the
 reference's ``VecDeque`` window becomes a fixed-capacity per-chain buffer with
 absolute write positions and a validity mask; the estimation pipeline
 (per-dim rescale -> thin SVD of draws & grads -> QR of the joint subspace ->
@@ -41,7 +41,7 @@ from ..transform.affine import (
 @dataclasses.dataclass(frozen=True)
 class LowRankSettings:
     """nuts-rs ``LowRankSettings`` (src/transform/low_rank.rs:193-208) plus
-    the TPU-specific static rank cap and window capacity."""
+    the static rank cap and window capacity that fixed shapes need."""
 
     gamma: float = 1e-5
     eigval_cutoff: float = 2.0

@@ -8,7 +8,7 @@ device ``lax.scan`` as per-draw inputs.  Expensive operations (mass-matrix
 refits, the step-size re-init search) then gate on *scalar* flags — real
 ``lax.cond`` branches on device, no vmap->select blowup across chains.
 
-TPU-first deviation (documented): the reference advances windows by the count
+Deviation (documented): the reference advances windows by the count
 of *good* (non-divergent) draws per chain; by default we advance by draw
 index, assuming all draws are good.  Per-chain masks still control which
 samples enter the estimators, so only the switch *timing* differs, and only

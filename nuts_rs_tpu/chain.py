@@ -1,6 +1,6 @@
 """Chain driver: warmup + sampling as one jitted scan over draws.
 
-TPU-native replacement for ``NutsChain`` and the ``AdaptStrategy`` wiring
+Batched replacement for ``NutsChain`` and the ``AdaptStrategy`` wiring
 (nuts-rs ``src/chain.rs:44-213``, ``src/adapt_strategy.rs:71-238``).
 
 The chains axis is explicit (leading dim C) rather than object-per-chain; the
@@ -13,61 +13,21 @@ see ``adapt/schedule.py``) so that expensive refits run under real
 from __future__ import annotations
 
 import dataclasses
-import os
 from functools import partial
 from typing import Any, NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from .adapt import mass_matrix as mm
 from .adapt import step_size as ss
 from .adapt.schedule import AdaptSchedule, WindowParams
-from .dynamics.hamiltonian import KineticKind, init_point_from_q
+from .dynamics.hamiltonian import init_point_from_q
 from .dynamics.point import Point
 from .kernels.nuts import NutsOptions, nuts_draw
 from .parallel.axis import dsum
 from .transform.affine import AffineTransform, identity_transform, init_diag_from_grad
-from .transform.affine import grad_to_transformed as grad_to_transformed_
-from .transform.affine import to_transformed as to_transformed_
 from .transform.ops import AFFINE_OPS
-
-
-def _ld_tiers():
-    """Chains-per-block candidates for the dim-on-lanes tier, largest first.
-
-    ``NUTS_PALLAS_LD_BLOCK=<n>`` forces a single candidate and skips the
-    static VMEM pre-check (expert knob: the budget model is conservative —
-    it charges 6 vector checkpoint stacks where the kernel carries 4 — so
-    blocks the formula rejects can still fit the measured ~16MB scoped-VMEM
-    limit; a block that genuinely does not fit fails at Mosaic compile,
-    which the launch-size auto-probe turns into a clean fallback).
-    """
-    forced = os.environ.get("NUTS_PALLAS_LD_BLOCK")
-    if forced:
-        return (int(forced),), True
-    return (32, 16, 8), False
-
-
-def _cl_tiers(dim):
-    """Chains-per-block candidates for the chains-on-lanes layout.
-
-    256 lanes whenever the VMEM formula admits it (it self-limits to
-    d ≲ 102 at maxdepth 10): per-iteration scalar op-issue overhead is
-    independent of the lane count, so wider blocks amortize it across
-    more chains — measured round 5 at the formula's worst admissible
-    case (d=100 GLM, 1024 chains, v5e): 1.85M → 2.27M device evals/s
-    (+23%), Mosaic compiles clean.  (Until round 5 the 256 tier was
-    gated at dim <= 32 out of caution.)  ``NUTS_PALLAS_CL_BLOCK=<n>``
-    forces a single candidate and skips the static VMEM pre-check
-    (expert knob; a block that does not fit fails at Mosaic compile and
-    the engine fallback catches it).
-    """
-    forced = os.environ.get("NUTS_PALLAS_CL_BLOCK")
-    if forced:
-        return (int(forced),), True
-    return (256, 128), False
 
 
 class ChainState(NamedTuple):
@@ -131,8 +91,8 @@ class DiagStrategy:
 
     With ``cross_chain=True`` the foreground estimators are pooled across all
     chains (and, under ``shard_map`` with ``axis_name`` set, across the device
-    mesh via psum) before each mass-matrix update — the TPU-native extension
-    the reference cannot express (SURVEY.md §2.12).
+    mesh via psum) before each mass-matrix update — an extension the
+    reference cannot express (SURVEY.md §2.12).
     """
 
     needs_extra_state = False
@@ -654,871 +614,6 @@ def make_async_posterior_runner(model, strategy, config: ChainConfig,
             "transformation_index": jnp.broadcast_to(
                 state.transform.id[None, :], (k,) + state.transform.id.shape),
             "tuning": jnp.zeros((k,) + out.diverging.shape[:1], bool),
-        }
-        return state, stats
-
-    return runner
-
-
-def make_pallas_posterior_runner(model, strategy, config: ChainConfig,
-                                 phase_start: int, base_seed: int):
-    """Posterior-phase runner on the fully-fused Pallas engine.
-
-    Only valid for diagonal transforms + Euclidean dynamics with default tree
-    options and no extra stores; the model's logp must lower inside Pallas.
-    RNG comes from the TPU hardware PRNG (or a hash fallback when
-    interpreted), so results are reproducible per (seed, chunking) but follow
-    a different stream than the XLA kernels.
-    """
-    from .kernels.nuts_pallas import nuts_pallas_run
-
-    sset = config.step_size
-
-    if model.pallas_logp_grad is not None:
-        logp_grad_batched, pallas_args = model.pallas_logp_grad
-    elif model.pallas_spec is not None:
-        logp_fn_args, pallas_args = model.pallas_spec
-
-        def logp_grad_batched(q, *args):  # [d, B] -> ([B], [d, B])
-            f = lambda qq: logp_fn_args(qq, *args)
-            return jax.vmap(jax.value_and_grad(f), in_axes=1,
-                            out_axes=(0, 1))(q)
-    else:
-        pallas_args = ()
-
-        def logp_grad_batched(q):
-            return jax.vmap(model.logp_and_grad, in_axes=1, out_axes=(0, 1))(q)
-
-    interpret = jax.default_backend() != "tpu"
-
-    # Frozen-flow posterior (Fisher HMC with a learned transform): pooled
-    # flow params are SHARED across chains, so the coupling MLPs run as
-    # plain MXU matmuls over the chains-on-lanes layout (unlike the
-    # per-chain low-rank transform, which measured 12-45x slower fused —
-    # BASELINE.md).  Requires the FlowSpec to provide pallas hooks and
-    # pooled training (per-chain params cannot be shared).
-    spec = getattr(strategy, "spec", None)
-    is_flow = bool(getattr(getattr(strategy, "ops", None), "is_flow", False))
-    flow_proto = []
-    if is_flow:
-        if (spec is None or spec.pallas_forward is None
-                or not strategy.flow_settings.pool_chains):
-            return None
-        proto_t = strategy.make_transform(model.dim, jnp.float32)
-        flow_proto = spec.pallas_pack(proto_t.params)
-
-    # VMEM budget: the whole sampler state + outputs live on-chip during a
-    # launch.  Rough per-lane footprint (f32 words): stacks 6*(D+1)*d,
-    # ~32 vectors of d, outputs K*(d+13) (double-buffered across the grid).
-    # The block (chains per launch) is the largest tier whose footprint at
-    # the minimum draw count (8) fits the budget — large d trades lane
-    # occupancy for VMEM residency, which still beats the XLA path's
-    # per-iteration HBM round-trips by orders of magnitude.
-    dim = model.dim
-    D = config.nuts.maxdepth
-    args_bytes = 4 * sum(int(np.prod(a.shape)) for a in pallas_args)
-    args_bytes += 4 * sum(int(np.prod(a.shape)) for a in flow_proto)
-    fixed = 6 * (D + 1) * dim + 32 * dim + 4
-    if is_flow:
-        # autodiff through the flow keeps per-layer activations live during
-        # the backward pass: ~2 passes x (hidden + ~4 d-vectors) per layer.
-        n_layers = max(0, (len(flow_proto) - 2) // 7)
-        hidden = max((int(a.shape[0]) for a in flow_proto), default=0)
-        fixed += 2 * n_layers * (hidden + 4 * dim)
-    # Pallas TPU requires the lane (chains) block dimension to be a multiple
-    # of 128, so 128 is the smallest legal block: models whose VMEM-resident
-    # state cannot fit at block 128 (d ≳ 200 at maxdepth 10 — the checkpoint
-    # stacks are 6*(D+1)*d words/chain) fall back to the XLA kernels by
-    # returning None here.
-    tiers, cl_forced = _cl_tiers(dim)
-
-    # Budget 12.5MB: empirically bracketed — the formula's 12.3MB estimate
-    # for d=100 GLM at 256 lanes (incl. 0.4MB VMEM-replicated data)
-    # compiles and runs (+23% measured, round 5), while the ld tier's
-    # 16.3MB estimate is rejected by Mosaic (BASELINE.md round-5 negative
-    # result); the physical scoped-VMEM limit is ~16MB.
-    def pick_block(abytes):
-        for tier in tiers:
-            if cl_forced or (4 * tier * (fixed + 2 * 8 * (dim + 13))
-                             + abytes <= 12_500_000):
-                return tier
-        return None
-
-    # Likelihood-data residency: VMEM replication while the data fits (no
-    # DMA churn), HBM streaming (StreamSpec double-buffered tiles) beyond
-    # that.  Stream-only models (no dense pallas channel — the autodiff
-    # fallback would capture the data arrays, which Mosaic rejects) go
-    # straight to streaming.  Flows carry their own data channel.
-    use_stream = False
-    layout = "cl"
-    stream_only = (model.pallas_stream is not None
-                   and model.pallas_logp_grad is None
-                   and model.pallas_spec is None)
-    block = None if stream_only else pick_block(args_bytes)
-    if block is None and model.pallas_stream is not None and not is_flow:
-        spec_s = model.pallas_stream
-        stream_bytes = 4 * 2 * spec_s.tile_rows * sum(
-            int(np.prod(a.shape[1:])) for a in spec_s.args)
-        block = pick_block(stream_bytes)
-        use_stream = block is not None
-        if use_stream:
-            args_bytes = stream_bytes
-    if block is None and not is_flow and not stream_only:
-        # Large-d tier: dim-on-lanes layout (kernels/nuts_pallas.py
-        # layout="ld") — chains ride sublanes in SMALL blocks while the
-        # parameter axis fills the lanes, so the checkpoint stacks that
-        # could never fit chains-on-lanes stay VMEM-resident (d in the
-        # thousands; the reference's sample_1000_1000 regime,
-        # benches/sample.rs:195-198).  Lane padding rounds d up to 128.
-        dim_pad = -(-dim // 128) * 128
-        # + (D+1)^2 for the ld tier's cross-dot matrix carries (czs in
-        # kernels/nuts_pallas.py — (D+1) tensors of (D+1) scalars per chain).
-        fixed_ld = (6 * (D + 1) + 32) * dim_pad + (D + 1) ** 2 + 64 * 128
-        ld_tiers, ld_forced = _ld_tiers()
-        for tier in ld_tiers:
-            if ld_forced or (4 * tier * (fixed_ld + 2 * 8 * (dim_pad + 128))
-                             + args_bytes <= 12_000_000):
-                block = tier
-                layout = "ld"
-                fixed = fixed_ld
-                break
-    if block is None:
-        return None
-    budget_words = (13_000_000 - args_bytes) // (4 * block)
-    if layout == "ld":
-        dim_pad = -(-dim // 128) * 128
-        MAX_K = int(max(8, min(64, (budget_words - fixed)
-                               // (2 * (dim_pad + 128)))))
-        # the hand-written [d, B]-oriented closed-form channel
-        # (pallas_logp_grad) does not apply to the transposed layout;
-        # rebuild the batched eval in [B, d] orientation.
-        if model.pallas_spec is not None:
-            logp_fn_args, pallas_args = model.pallas_spec
-
-            def logp_grad_batched(q, *args):  # [B, d] -> ([B], [B, d])
-                f = lambda qq: logp_fn_args(qq, *args)
-                return jax.vmap(jax.value_and_grad(f), in_axes=0,
-                                out_axes=(0, 0))(q)
-        else:
-            pallas_args = ()
-
-            def logp_grad_batched(q):
-                return jax.vmap(model.logp_and_grad, in_axes=0,
-                                out_axes=(0, 0))(q)
-    else:
-        MAX_K = int(max(8, min(64, (budget_words - fixed)
-                               // (2 * (dim + 13)))))
-
-    def runner(state: ChainState, flags):
-        k = flags["is_tuning"].shape[0]
-        bars = jax.vmap(partial(ss.step_size_bar, settings=sset))(state.step)
-
-        if is_flow:
-            # flow mode: the q slot carries z (entering the flow needs its
-            # host-side inverse — the state already holds z); the kernel
-            # returns (q-space final, z-space final) in the (q, g) slots.
-            flow_params0 = jax.tree.map(lambda v: v[0],
-                                        state.transform.params)
-            flow_arg = (spec.pallas_forward, spec.pallas_pack(flow_params0))
-            pos_in = state.pt.z
-            ones_d = jnp.ones_like(state.pt.q)
-            stds_in, mean_in = ones_d, jnp.zeros_like(state.pt.q)
-            logdet_in = jnp.zeros_like(state.pt.logp)
-        else:
-            flow_arg = None
-            pos_in = state.pt.q
-            stds_in, mean_in = state.transform.stds, state.transform.mean
-            logdet_in = state.transform.logdet
-        # `pos` threads the kernel's position operand between sub-launches:
-        # q-space for the diagonal transform, z-space for flows (the aux_f
-        # output slot carries the final z there).
-        pos, g_f, logp_f = pos_in, state.pt.g, state.pt.logp
-        q_f = state.pt.q
-        step_in = state.step.step_size
-        # Device-decorrelation salt: the kernel's PRNG stream is derived
-        # from (scalar seed, program_id), so under shard_map every device
-        # would otherwise replay the SAME stream for its local chain
-        # blocks.  The first local chain's threefry key differs per shard
-        # (keys are sharded over the chains mesh axis) and is part of the
-        # checkpointed state, so resume stays bit-identical.
-        dev_salt = jax.random.randint(
-            state.keys[0], (), 0, 2**31 - 1, dtype=jnp.int32)
-
-        # The kernel applies its step operand verbatim to the FIRST draw of a
-        # launch (by design: the very first posterior draw keeps the
-        # warmup-set step, as in the reference).  Threading the previous
-        # launch's last USED step across sub-launch/chunk boundaries would
-        # make that first draw reuse the previous draw's jitter sample, so
-        # continuation launches get a freshly jittered first step instead
-        # (keyed on the global draw index: deterministic, resume-safe).
-        def launch_step(start_draw):
-            kj = jax.vmap(lambda kc: jax.random.fold_in(
-                jax.random.fold_in(kc, 0x6A17), start_draw))(state.keys)
-            u = jax.vmap(lambda k_: jax.random.uniform(
-                k_, (), bars.dtype,
-                minval=1.0 - sset.jitter, maxval=1.0 + sset.jitter))(kj)
-            return bars * u
-
-        draws_parts, out_parts = [], []
-        done = 0
-        while done < k:
-            kk = min(MAX_K, k - done)
-            if sset.jitter is not None:
-                if done == 0:
-                    step_in = jnp.where(state.draw_idx == phase_start,
-                                        step_in, launch_step(state.draw_idx))
-                else:
-                    step_in = launch_step(state.draw_idx + done)
-            seed = (jnp.int32(base_seed & 0x7FFFFFFF)
-                    ^ ((state.draw_idx + done)
-                       * jnp.int32(2654435761 & 0x7FFFFFFF))
-                    ^ dev_salt)
-            q_f, aux_f, logp_f, dpart, opart = nuts_pallas_run(
-                seed, pos, g_f, logp_f,
-                stds_in, mean_in, logdet_in, step_in, bars,
-                kk, logp_grad_batched, config.nuts, sset.jitter,
-                interpret=interpret,
-                model_args=() if use_stream else pallas_args, block=block,
-                flow=flow_arg,
-                stream=model.pallas_stream if use_stream else None,
-                layout=layout,
-            )
-            pos = aux_f if is_flow else q_f
-            g_f = aux_f
-            step_in = opart["step_size"][:, -1]
-            draws_parts.append(dpart)
-            out_parts.append(opart)
-            done += kk
-        draws = jnp.concatenate(draws_parts, axis=1)
-        out = {key: jnp.concatenate([o[key] for o in out_parts], axis=1)
-               for key in out_parts[0] if key != "loop_iterations"}
-
-        # rebuild a consistent Point at the final position
-        if is_flow:
-            # g_f slot holds the final z; recompute everything from it
-            # through the flow (FlowOps.eval_from_z), exactly as the XLA
-            # path would.
-            z_f = g_f
-            q_f, logp_f, g_f, zg_f, _ld = jax.vmap(
-                lambda t_, z_: strategy.ops.eval_from_z(
-                    t_, z_, model.logp_and_grad))(state.transform, z_f)
-        else:
-            from .transform.affine import grad_to_transformed, to_transformed
-
-            z_f = jax.vmap(to_transformed)(state.transform, q_f)
-            zg_f = jax.vmap(grad_to_transformed)(state.transform, g_f)
-        pt = state.pt._replace(q=q_f, g=g_f, z=z_f, zg=zg_f, logp=logp_f)
-        state = state._replace(
-            pt=pt,
-            step=state.step._replace(step_size=step_in),
-            draw_idx=state.draw_idx + k,
-        )
-
-        def t(x):
-            return jnp.moveaxis(x, 0, 1)
-
-        n = jnp.maximum(out["n_steps"], 1.0)
-        stats = {
-            "position": t(draws),
-            "depth": t(out["depth"].astype(jnp.int32)),
-            "maxdepth_reached": t(out["maxdepth_reached"] > 0.5),
-            "diverging": t(out["diverging"] > 0.5),
-            "n_steps": t(out["n_steps"].astype(jnp.int32)),
-            "step_size": t(out["step_size"]),
-            "step_size_bar": jnp.broadcast_to(bars[None, :], (k,) + bars.shape),
-            "mean_tree_accept": t(out["sum_accept"] / n),
-            "mean_tree_accept_sym": t(out["sum_accept_sym"] / n),
-            "max_energy_error": t(out["max_energy_error"]),
-            "logp": t(out["logp"]),
-            "energy": t(out["energy"]),
-            "energy_error": t(out["energy_error"]),
-            "index_in_trajectory": t(out["index_in_trajectory"].astype(jnp.int32)),
-            "fisher_distance": t(out["fisher_distance"]),
-            "transformation_index": jnp.broadcast_to(
-                state.transform.id[None, :], (k,) + state.transform.id.shape),
-            "tuning": jnp.zeros((k,) + bars.shape, bool),
-        }
-        return state, stats
-
-    return runner
-
-
-def make_pallas_warmup_runner(model, strategy, config: ChainConfig,
-                              base_seed: int, use_grad_based: bool):
-    """Warmup-phase runner on the fused Pallas engine.
-
-    Runs whole chunks of tuning draws inside one ``pallas_call`` with the
-    fg/bg Welford estimators, diagonal mass-matrix rule, and dual averaging
-    executed in-kernel (see kernels/nuts_pallas.py, warmup section).  The
-    step-size init-search re-run on the first mass-matrix change stays on the
-    XLA path: it fires on the chunk whose last draw carries
-    ``reinit_step_size`` (the sampler splits the warmup phase there).
-
-    Signature matches the scan runners: ``(state, flags) -> (state, stats)``
-    with ``stats[name]`` shaped [k, C, ...].
-    """
-    from .kernels.nuts_pallas import (
-        FLAG_ADVANCE_DA, FLAG_DO_SWITCH, FLAG_DO_UPDATE, FLAG_UPDATE_EST,
-        FLAG_USE_BEST, FLAG_USE_LATE,
-        NFLAGS, NSCA, SCA_CNT_BG, SCA_CNT_FG, SCA_DA_CNT, SCA_DA_HBAR,
-        SCA_DA_LS, SCA_DA_LSA, SCA_DA_MU, SCA_LOGDET, SCA_STEP, SCA_TID,
-        nuts_pallas_warmup_run,
-    )
-
-    sset = config.step_size
-
-    if model.pallas_logp_grad is not None:
-        logp_grad_batched, pallas_args = model.pallas_logp_grad
-    elif model.pallas_spec is not None:
-        logp_fn_args, pallas_args = model.pallas_spec
-
-        def logp_grad_batched(q, *args):  # [d, B] -> ([B], [d, B])
-            f = lambda qq: logp_fn_args(qq, *args)
-            return jax.vmap(jax.value_and_grad(f), in_axes=1,
-                            out_axes=(0, 1))(q)
-    elif model.pallas_stream is not None:
-        # Stream-only model: no dense data channel for the warmup kernel
-        # (the autodiff fallback would capture the data arrays, which
-        # Mosaic rejects) — warmup stays on the XLA path.
-        return None
-    else:
-        pallas_args = ()
-
-        def logp_grad_batched(q):
-            return jax.vmap(model.logp_and_grad, in_axes=1, out_axes=(0, 1))(q)
-
-    interpret = jax.default_backend() != "tpu"
-    dim = model.dim
-
-    # VMEM budget, mirroring make_pallas_posterior_runner: the warmup launch
-    # additionally keeps the 8 estimator planes (8*d words/lane) and the
-    # outer-carry copies of q/g/stds/mean on-chip, and emits 15 stat rows per
-    # draw.  The K-dependent output blocks ([K, d, B] draws + [K, 15, B]
-    # stats) are double-buffered across the chain grid, hence the factor 2.
-    # Draw count per pallas_call is capped accordingly and the chunk runs as
-    # a sequence of sub-launches threading the adaptation state.
-    D = config.nuts.maxdepth
-    args_bytes = 4 * sum(int(np.prod(a.shape)) for a in pallas_args)
-    fixed = 6 * (D + 1) * dim + 40 * dim + 8 * dim
-    # Lane blocks must be multiples of 128 (see the posterior runner).
-    tiers, cl_forced = _cl_tiers(dim)
-    block = None
-    layout = "cl"
-    for tier in tiers:
-        if cl_forced or (4 * tier * (fixed + 2 * 8 * (dim + 15))
-                         + args_bytes <= 12_000_000):
-            block = tier
-            break
-    if block is None:
-        # Large-d tier: dim-on-lanes layout, mirroring the posterior
-        # runner's ld fallback (chains on sublanes in small blocks; the
-        # checkpoint stacks + estimator planes stay VMEM-resident at d in
-        # the thousands).
-        dim_pad = -(-dim // 128) * 128
-        # + (D+1)^2 for the ld cross-dot matrix (see the posterior runner).
-        fixed_ld = ((6 * (D + 1) + 48) * dim_pad + (D + 1) ** 2
-                    + 64 * 128)
-        ld_tiers, ld_forced = _ld_tiers()
-        for tier in ld_tiers:
-            if ld_forced or (4 * tier * (fixed_ld + 2 * 8 * (dim_pad + 128))
-                             + args_bytes <= 12_000_000):
-                block = tier
-                layout = "ld"
-                fixed = fixed_ld
-                break
-    if block is None:
-        return None
-    budget_words = (13_000_000 - args_bytes) // (4 * block)
-    if layout == "ld":
-        dim_pad = -(-dim // 128) * 128
-        MAX_K = int(max(8, min(64, (budget_words - fixed)
-                               // (2 * (dim_pad + 128)))))
-        # rebuild the batched eval in [B, d] orientation (the [d, B]
-        # closed-form channel does not apply; see the posterior runner).
-        if model.pallas_spec is not None:
-            logp_fn_args, pallas_args = model.pallas_spec
-
-            def logp_grad_batched(q, *args):  # [B, d] -> ([B], [B, d])
-                f = lambda qq: logp_fn_args(qq, *args)
-                return jax.vmap(jax.value_and_grad(f), in_axes=0,
-                                out_axes=(0, 0))(q)
-        else:
-            pallas_args = ()
-
-            def logp_grad_batched(q):
-                return jax.vmap(model.logp_and_grad, in_axes=0,
-                                out_axes=(0, 0))(q)
-    else:
-        MAX_K = int(max(8, min(64, (budget_words - fixed)
-                               // (2 * (dim + 15)))))
-
-    def runner(state: ChainState, flags):
-        k = flags["is_tuning"].shape[0]
-        dtype = state.pt.q.dtype
-
-        flag_cols = jnp.zeros((k, NFLAGS), jnp.int32)
-        for col, name in [(FLAG_UPDATE_EST, "update_estimators"),
-                          (FLAG_DO_UPDATE, "do_update"),
-                          (FLAG_ADVANCE_DA, "advance_da"),
-                          (FLAG_USE_LATE, "use_late_estimator"),
-                          (FLAG_USE_BEST, "use_best_guess"),
-                          (FLAG_DO_SWITCH, "do_switch")]:
-            flag_cols = flag_cols.at[:, col].set(
-                flags[name].astype(jnp.int32))
-
-        # pack estimator planes [C, 8, d] and scalar rows [C, NSCA]
-        a = state.diag_adapt
-        est = jnp.stack([
-            a.draw.mean, a.draw.var_sum, a.grad.mean, a.grad.var_sum,
-            a.draw_bg.mean, a.draw_bg.var_sum, a.grad_bg.mean,
-            a.grad_bg.var_sum,
-        ], axis=1)
-        sca = jnp.zeros((state.pt.q.shape[0], NSCA), dtype)
-        for row, val in [
-            (SCA_STEP, state.step.step_size),
-            (SCA_DA_LS, state.step.log_step),
-            (SCA_DA_LSA, state.step.log_step_adapted),
-            (SCA_DA_HBAR, state.step.hbar),
-            (SCA_DA_MU, state.step.mu),
-            (SCA_DA_CNT, state.step.count),
-            (SCA_CNT_FG, a.draw.count),
-            (SCA_CNT_BG, a.draw_bg.count),
-            (SCA_TID, state.transform.id.astype(dtype)),
-            (SCA_LOGDET, state.transform.logdet),
-        ]:
-            sca = sca.at[:, row].set(val)
-
-        q_f, g_f, logp_f = state.pt.q, state.pt.g, state.pt.logp
-        stds_f, mean_f = state.transform.stds, state.transform.mean
-        est_f, sca_f = est, sca
-        # Same device-decorrelation salt as the posterior runner: distinct
-        # PRNG streams per mesh shard (no-op semantics change otherwise —
-        # still a pure function of the checkpointed state).
-        dev_salt = jax.random.randint(
-            state.keys[0], (), 0, 2**31 - 1, dtype=jnp.int32)
-        draws_parts, out_parts = [], []
-        done = 0
-        while done < k:
-            kk = min(MAX_K, k - done)
-            seed = (jnp.int32(base_seed & 0x7FFFFFFF)
-                    ^ ((state.draw_idx + done)
-                       * jnp.int32(2654435761 & 0x7FFFFFFF))
-                    ^ dev_salt)
-            (q_f, g_f, logp_f, stds_f, mean_f, est_f, sca_f, dpart,
-             opart) = nuts_pallas_warmup_run(
-                seed, flag_cols[done:done + kk], q_f, g_f, logp_f,
-                stds_f, mean_f, est_f, sca_f,
-                logp_grad_batched, config.nuts, sset, use_grad_based,
-                interpret=interpret, model_args=pallas_args, block=block,
-                layout=layout)
-            draws_parts.append(dpart)
-            out_parts.append(opart)
-            done += kk
-        draws = (draws_parts[0] if len(draws_parts) == 1
-                 else jnp.concatenate(draws_parts, axis=1))
-        out = {key: (out_parts[0][key] if len(out_parts) == 1
-                     else jnp.concatenate([o[key] for o in out_parts], axis=1))
-               for key in out_parts[0] if key != "loop_iterations"}
-
-        q_f = q_f.astype(dtype)
-        g_f = g_f.astype(dtype)
-        stds_f = stds_f.astype(dtype)
-        mean_f = mean_f.astype(dtype)
-        est_f = est_f.astype(dtype)
-        sca_f = sca_f.astype(dtype)
-
-        transform = state.transform._replace(
-            stds=stds_f, mean=mean_f, inv_stds=1.0 / stds_f,
-            logdet=sca_f[:, SCA_LOGDET],
-            id=sca_f[:, SCA_TID].astype(jnp.int32))
-        rv = lambda m, v, c: mm.RunningVariance(mean=m, var_sum=v, count=c)
-        diag_adapt = mm.DiagAdaptState(
-            draw=rv(est_f[:, 0], est_f[:, 1], sca_f[:, SCA_CNT_FG]),
-            grad=rv(est_f[:, 2], est_f[:, 3], sca_f[:, SCA_CNT_FG]),
-            draw_bg=rv(est_f[:, 4], est_f[:, 5], sca_f[:, SCA_CNT_BG]),
-            grad_bg=rv(est_f[:, 6], est_f[:, 7], sca_f[:, SCA_CNT_BG]),
-        )
-        step = state.step._replace(
-            log_step=sca_f[:, SCA_DA_LS],
-            log_step_adapted=sca_f[:, SCA_DA_LSA],
-            hbar=sca_f[:, SCA_DA_HBAR],
-            mu=sca_f[:, SCA_DA_MU],
-            count=sca_f[:, SCA_DA_CNT],
-            step_size=sca_f[:, SCA_STEP],
-        )
-        z_f = jax.vmap(to_transformed_)(transform, q_f)
-        zg_f = jax.vmap(grad_to_transformed_)(transform, g_f)
-        pt = state.pt._replace(q=q_f, g=g_f, z=z_f, zg=zg_f,
-                               logp=logp_f.astype(dtype))
-        state = state._replace(pt=pt, transform=transform,
-                               diag_adapt=diag_adapt, step=step,
-                               draw_idx=state.draw_idx + k)
-
-        # First-mass-matrix-change step-size re-init (adapt_strategy.rs:207-212)
-        # fires when this chunk's last draw carries the flag.
-        def with_reinit(st):
-            keys = jax.vmap(jax.random.fold_in)(
-                st.keys, jnp.broadcast_to(st.draw_idx, st.keys.shape[:1]))
-            found = jax.vmap(
-                partial(ss.init_search, logp_grad_fn=model.logp_and_grad,
-                        settings=sset, kind=config.nuts.kind))(
-                keys, st.pt.q, st.transform)
-            found = _maybe_pool_steps(found, config)
-            return st._replace(
-                step=jax.vmap(ss.reset_from_found_step)(st.step, found))
-
-        state = jax.lax.cond(flags["reinit_step_size"][-1], with_reinit,
-                             lambda st: st, state)
-
-        def t(x):
-            return jnp.moveaxis(x, 0, 1).astype(dtype)
-
-        n = jnp.maximum(out["n_steps"], 1.0)
-        stats = {
-            "position": t(draws),
-            "depth": t(out["depth"]).astype(jnp.int32),
-            "maxdepth_reached": t(out["maxdepth_reached"]) > 0.5,
-            "diverging": t(out["diverging"]) > 0.5,
-            "n_steps": t(out["n_steps"]).astype(jnp.int32),
-            "step_size": t(out["step_size"]),
-            "step_size_bar": t(out["step_size_bar"]),
-            "mean_tree_accept": t(out["sum_accept"] / n),
-            "mean_tree_accept_sym": t(out["sum_accept_sym"] / n),
-            "max_energy_error": t(out["max_energy_error"]),
-            "logp": t(out["logp"]),
-            "energy": t(out["energy"]),
-            "energy_error": t(out["energy_error"]),
-            "index_in_trajectory": t(out["index_in_trajectory"]).astype(jnp.int32),
-            "fisher_distance": t(out["fisher_distance"]),
-            "transformation_index": t(out["transformation_index"]).astype(jnp.int32),
-            "tuning": jnp.broadcast_to(
-                flags["is_tuning"][:, None],
-                (k, state.pt.q.shape[0])).astype(bool),
-        }
-        return state, stats
-
-    return runner
-
-
-def make_pallas_mclmc_posterior_runner(model, strategy, config: ChainConfig,
-                                       mopts, phase_start: int,
-                                       base_seed: int):
-    """MCLMC posterior-phase runner on the fused Pallas engine.
-
-    Valid for frozen diagonal transforms with no extra stores; the posterior
-    phase never fully resamples the momentum (``MclmcSettings.extra_flags``
-    only sets ``resample_velocity`` on draw 0 and at the trajectory switch,
-    both inside warmup), so the velocity threads through the kernel's
-    ``fin_v`` slot between launches.  Signature matches the scan runners:
-    ``(state, flags) -> (state, stats)`` with stats[name] shaped [k, C, ...].
-    """
-    from .kernels.mclmc_pallas import mclmc_pallas_run
-
-    sset = config.step_size
-
-    if model.pallas_logp_grad is not None:
-        logp_grad_batched, pallas_args = model.pallas_logp_grad
-    elif model.pallas_spec is not None:
-        logp_fn_args, pallas_args = model.pallas_spec
-
-        def logp_grad_batched(q, *args):  # [d, B] -> ([B], [d, B])
-            f = lambda qq: logp_fn_args(qq, *args)
-            return jax.vmap(jax.value_and_grad(f), in_axes=1,
-                            out_axes=(0, 1))(q)
-    elif model.pallas_stream is not None:
-        # No HBM-streaming variant of the MCLMC kernel yet.
-        return None
-    else:
-        pallas_args = ()
-
-        def logp_grad_batched(q):
-            return jax.vmap(model.logp_and_grad, in_axes=1, out_axes=(0, 1))(q)
-
-    interpret = jax.default_backend() != "tpu"
-
-    # VMEM budget: no checkpoint stacks here — the carry is ~8 d-vectors
-    # plus ~16 body temporaries; outputs K*(d + NSTATS_M) double-buffered.
-    dim = model.dim
-    args_bytes = 4 * sum(int(np.prod(a.shape)) for a in pallas_args)
-    fixed = 32 * dim + 64
-    block = None
-    for tier in (256, 128):
-        if 4 * tier * (fixed + 2 * 8 * (dim + 8)) + args_bytes <= 12_000_000:
-            block = tier
-            break
-    if block is None:
-        return None
-    budget_words = (13_000_000 - args_bytes) // (4 * block)
-    MAX_K = int(max(8, min(64, (budget_words - fixed) // (2 * (dim + 8)))))
-
-    def runner(state: ChainState, flags):
-        k = flags["is_tuning"].shape[0]
-        bars = jax.vmap(partial(ss.step_size_bar, settings=sset))(state.step)
-
-        pos, g_f, logp_f, v_f = (state.pt.q, state.pt.g, state.pt.logp,
-                                 state.pt.v)
-        step_in = state.step.step_size
-        dev_salt = jax.random.randint(
-            state.keys[0], (), 0, 2**31 - 1, dtype=jnp.int32)
-
-        def launch_step(start_draw):
-            kj = jax.vmap(lambda kc: jax.random.fold_in(
-                jax.random.fold_in(kc, 0x6A17), start_draw))(state.keys)
-            u = jax.vmap(lambda k_: jax.random.uniform(
-                k_, (), bars.dtype,
-                minval=1.0 - sset.jitter, maxval=1.0 + sset.jitter))(kj)
-            return bars * u
-
-        draws_parts, out_parts = [], []
-        done = 0
-        while done < k:
-            kk = min(MAX_K, k - done)
-            if sset.jitter is not None:
-                if done == 0:
-                    step_in = jnp.where(state.draw_idx == phase_start,
-                                        step_in, launch_step(state.draw_idx))
-                else:
-                    step_in = launch_step(state.draw_idx + done)
-            seed = (jnp.int32(base_seed & 0x7FFFFFFF)
-                    ^ ((state.draw_idx + done)
-                       * jnp.int32(2654435761 & 0x7FFFFFFF))
-                    ^ dev_salt)
-            pos, g_f, logp_f, v_f, dpart, opart = mclmc_pallas_run(
-                seed, pos, g_f, logp_f, v_f,
-                state.transform.stds, state.transform.mean,
-                state.transform.logdet, step_in, bars,
-                kk, logp_grad_batched, mopts, sset.jitter,
-                interpret=interpret, model_args=pallas_args, block=block,
-            )
-            step_in = opart["step_size"][:, -1]
-            draws_parts.append(dpart)
-            out_parts.append(opart)
-            done += kk
-        draws = jnp.concatenate(draws_parts, axis=1)
-        out = {key: jnp.concatenate([o[key] for o in out_parts], axis=1)
-               for key in out_parts[0] if key != "loop_iterations"}
-
-        z_f = jax.vmap(to_transformed_)(state.transform, pos)
-        zg_f = jax.vmap(grad_to_transformed_)(state.transform, g_f)
-        if mopts.kind is KineticKind.MICROCANONICAL:
-            ke_f = jnp.zeros_like(logp_f)
-        else:
-            ke_f = 0.5 * jnp.sum(v_f * v_f, axis=-1)
-        pt = state.pt._replace(q=pos, g=g_f, z=z_f, zg=zg_f, logp=logp_f,
-                               v=v_f, ke=ke_f)
-        state = state._replace(
-            pt=pt,
-            step=state.step._replace(step_size=step_in),
-            draw_idx=state.draw_idx + k,
-        )
-
-        def t(x):
-            return jnp.moveaxis(x, 0, 1)
-
-        e_change = t(out["energy_change"])
-        stats = {
-            "position": t(draws),
-            "diverging": t(out["diverging"] > 0.5),
-            "n_steps": t(out["n_steps"].astype(jnp.int32)),
-            "energy_change": e_change,
-            # nuts-rs stores energy_change as the log weight (mclmc.rs:441-2)
-            "log_weight": e_change,
-            "average_step_size": t(out["average_step_size"]),
-            "step_size": t(out["step_size"]),
-            "logp": t(out["logp"]),
-            "energy": t(out["energy"]),
-            "fisher_distance": t(out["fisher_distance"]),
-            "transformation_index": jnp.broadcast_to(
-                state.transform.id[None, :], (k,) + state.transform.id.shape),
-            "tuning": jnp.zeros((k, state.pt.q.shape[0]), bool),
-        }
-        return state, stats
-
-    return runner
-
-
-def make_pallas_mclmc_warmup_runner(model, strategy, config: ChainConfig,
-                                    mopts, base_seed: int):
-    """MCLMC warmup-phase runner on the fused Pallas engine.
-
-    Runs whole chunks of tuning draws inside one ``pallas_call`` per
-    chain-group with the fg/bg Welford estimators, window switches, and the
-    diagonal mass-matrix rule in-kernel (kernels/mclmc_pallas.py, warmup
-    section) — the MCLMC analog of :func:`make_pallas_warmup_runner`
-    (reference warmup loop: src/mclmc.rs:487-546 + adapt_strategy.rs).
-    MCLMC's step size is FIXED with per-draw jitter, so there is no
-    dual-averaging state and no step-size-reinit phase split.  Signature
-    matches the scan runners: ``(state, flags) -> (state, stats)``.
-    """
-    from .kernels.mclmc_pallas import (
-        MW_FLAG_RESAMPLE, MSCA_CNT_BG, MSCA_CNT_FG, MSCA_LOGDET, MSCA_TID,
-        NSCA_M, mclmc_pallas_warmup_run,
-    )
-    from .kernels.nuts_pallas import (
-        FLAG_DO_SWITCH, FLAG_DO_UPDATE, FLAG_UPDATE_EST, NFLAGS,
-    )
-
-    sset = config.step_size
-
-    if model.pallas_logp_grad is not None:
-        logp_grad_batched, pallas_args = model.pallas_logp_grad
-    elif model.pallas_spec is not None:
-        logp_fn_args, pallas_args = model.pallas_spec
-
-        def logp_grad_batched(q, *args):  # [d, B] -> ([B], [d, B])
-            f = lambda qq: logp_fn_args(qq, *args)
-            return jax.vmap(jax.value_and_grad(f), in_axes=1,
-                            out_axes=(0, 1))(q)
-    elif model.pallas_stream is not None:
-        return None
-    else:
-        pallas_args = ()
-
-        def logp_grad_batched(q):
-            return jax.vmap(model.logp_and_grad, in_axes=1, out_axes=(0, 1))(q)
-
-    interpret = jax.default_backend() != "tpu"
-    use_grad_based = config.use_grad_based_estimate
-
-    # VMEM budget: the MCLMC carry (~12 d-vectors) + est planes in/out
-    # (2*8*d) + outer q/g/stds/mean copies; outputs K*(d + 9) double-buffered.
-    dim = model.dim
-    args_bytes = 4 * sum(int(np.prod(a.shape)) for a in pallas_args)
-    fixed = 48 * dim + 128
-    block = None
-    for tier in (256, 128):
-        if 4 * tier * (fixed + 2 * 8 * (dim + 9)) + args_bytes <= 12_000_000:
-            block = tier
-            break
-    if block is None:
-        return None
-    budget_words = (13_000_000 - args_bytes) // (4 * block)
-    MAX_K = int(max(8, min(64, (budget_words - fixed) // (2 * (dim + 9)))))
-
-    def runner(state: ChainState, flags):
-        k = flags["is_tuning"].shape[0]
-        dtype = state.pt.q.dtype
-
-        flag_cols = jnp.zeros((k, NFLAGS), jnp.int32)
-        for col, name in [(FLAG_UPDATE_EST, "update_estimators"),
-                          (FLAG_DO_UPDATE, "do_update"),
-                          (FLAG_DO_SWITCH, "do_switch"),
-                          (MW_FLAG_RESAMPLE, "resample_velocity")]:
-            flag_cols = flag_cols.at[:, col].set(
-                flags[name].astype(jnp.int32))
-
-        a = state.diag_adapt
-        est = jnp.stack([
-            a.draw.mean, a.draw.var_sum, a.grad.mean, a.grad.var_sum,
-            a.draw_bg.mean, a.draw_bg.var_sum, a.grad_bg.mean,
-            a.grad_bg.var_sum,
-        ], axis=1)
-        sca = jnp.zeros((state.pt.q.shape[0], NSCA_M), dtype)
-        for row, val in [
-            (MSCA_TID, state.transform.id.astype(dtype)),
-            (MSCA_LOGDET, state.transform.logdet),
-            (MSCA_CNT_FG, a.draw.count),
-            (MSCA_CNT_BG, a.draw_bg.count),
-        ]:
-            sca = sca.at[:, row].set(val)
-
-        q_f, g_f, logp_f, v_f = (state.pt.q, state.pt.g, state.pt.logp,
-                                 state.pt.v)
-        stds_f, mean_f = state.transform.stds, state.transform.mean
-        est_f, sca_f = est, sca
-        dev_salt = jax.random.randint(
-            state.keys[0], (), 0, 2**31 - 1, dtype=jnp.int32)
-
-        draws_parts, out_parts = [], []
-        done = 0
-        while done < k:
-            kk = min(MAX_K, k - done)
-            seed = (jnp.int32(base_seed & 0x7FFFFFFF)
-                    ^ ((state.draw_idx + done)
-                       * jnp.int32(2654435761 & 0x7FFFFFFF))
-                    ^ dev_salt)
-            (q_f, g_f, logp_f, v_f, stds_f, mean_f, est_f, sca_f, dpart,
-             opart) = mclmc_pallas_warmup_run(
-                seed, flag_cols[done:done + kk], q_f, g_f, logp_f, v_f,
-                stds_f, mean_f, est_f, sca_f,
-                logp_grad_batched, mopts, sset, use_grad_based,
-                interpret=interpret, model_args=pallas_args, block=block)
-            draws_parts.append(dpart)
-            out_parts.append(opart)
-            done += kk
-        draws = (draws_parts[0] if len(draws_parts) == 1
-                 else jnp.concatenate(draws_parts, axis=1))
-        out = {key: (out_parts[0][key] if len(out_parts) == 1
-                     else jnp.concatenate([o[key] for o in out_parts], axis=1))
-               for key in out_parts[0] if key != "loop_iterations"}
-
-        q_f = q_f.astype(dtype)
-        g_f = g_f.astype(dtype)
-        v_f = v_f.astype(dtype)
-        stds_f = stds_f.astype(dtype)
-        mean_f = mean_f.astype(dtype)
-        est_f = est_f.astype(dtype)
-        sca_f = sca_f.astype(dtype)
-
-        transform = state.transform._replace(
-            stds=stds_f, mean=mean_f, inv_stds=1.0 / stds_f,
-            logdet=sca_f[:, MSCA_LOGDET],
-            id=sca_f[:, MSCA_TID].astype(jnp.int32))
-        rv = lambda m, v_, c: mm.RunningVariance(mean=m, var_sum=v_, count=c)
-        diag_adapt = mm.DiagAdaptState(
-            draw=rv(est_f[:, 0], est_f[:, 1], sca_f[:, MSCA_CNT_FG]),
-            grad=rv(est_f[:, 2], est_f[:, 3], sca_f[:, MSCA_CNT_FG]),
-            draw_bg=rv(est_f[:, 4], est_f[:, 5], sca_f[:, MSCA_CNT_BG]),
-            grad_bg=rv(est_f[:, 6], est_f[:, 7], sca_f[:, MSCA_CNT_BG]),
-        )
-        logp_f2 = logp_f.astype(dtype)
-        z_f = jax.vmap(to_transformed_)(transform, q_f)
-        zg_f = jax.vmap(grad_to_transformed_)(transform, g_f)
-        if mopts.kind is KineticKind.MICROCANONICAL:
-            ke_f = jnp.zeros_like(logp_f2)
-        else:
-            ke_f = 0.5 * jnp.sum(v_f * v_f, axis=-1)
-        pt = state.pt._replace(q=q_f, g=g_f, z=z_f, zg=zg_f, logp=logp_f2,
-                               v=v_f, ke=ke_f,
-                               logdet=sca_f[:, MSCA_LOGDET])
-        # Step for the next phase's first draw: the fixed value with a fresh
-        # jitter factor drawn from the chain keys (apply_jitter semantics) so
-        # the posterior phase starts from a reproducible checkpointed step.
-        step_next = jnp.full_like(logp_f2, float(sset.fixed_value))
-        if sset.jitter is not None:
-            kj = jax.vmap(lambda kc: jax.random.fold_in(
-                jax.random.fold_in(kc, 0x6A17), state.draw_idx + k))(
-                state.keys)
-            u = jax.vmap(lambda k_: jax.random.uniform(
-                k_, (), dtype, minval=1.0 - sset.jitter,
-                maxval=1.0 + sset.jitter))(kj)
-            step_next = step_next * u
-        state = state._replace(
-            pt=pt,
-            transform=transform,
-            diag_adapt=diag_adapt,
-            step=state.step._replace(step_size=step_next),
-            draw_idx=state.draw_idx + k,
-        )
-
-        def t(x):
-            return jnp.moveaxis(x, 0, 1)
-
-        e_change = t(out["energy_change"])
-        stats = {
-            "position": t(draws),
-            "diverging": t(out["diverging"] > 0.5),
-            "n_steps": t(out["n_steps"].astype(jnp.int32)),
-            "energy_change": e_change,
-            "log_weight": e_change,
-            "average_step_size": t(out["average_step_size"]),
-            "step_size": t(out["step_size"]),
-            "logp": t(out["logp"]),
-            "energy": t(out["energy"]),
-            "fisher_distance": t(out["fisher_distance"]),
-            "transformation_index": t(
-                out["transformation_index"].astype(jnp.int32)),
-            "tuning": jnp.ones((k, state.pt.q.shape[0]), bool),
         }
         return state, stats
 

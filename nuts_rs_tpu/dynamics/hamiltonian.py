@@ -1,6 +1,6 @@
 """Leapfrog integrators, turning criterion, and trajectory initialization.
 
-TPU-native redesign of ``TransformedHamiltonian``
+Batched redesign of ``TransformedHamiltonian``
 (nuts-rs ``src/dynamics/transformed_hamiltonian.rs:409-827``).  Three kinetic
 energy kinds (``src/dynamics/transformed_hamiltonian.rs:27-50``):
 

@@ -2,7 +2,7 @@
 
 Replaces the reference's refcounted ``StatePool``/``State`` objects
 (nuts-rs ``src/dynamics/state.rs:23-124``) and ``TransformedPoint``
-(``src/dynamics/transformed_hamiltonian.rs:56-77``).  On TPU there is no
+(``src/dynamics/transformed_hamiltonian.rs:56-77``).  Here there is no
 pooling: XLA donates and reuses buffers; a point is just a NamedTuple of
 arrays with a leading chains axis added by ``vmap``.
 """

@@ -136,47 +136,6 @@ def _layer_inverse(layer, cfg, q):
 def coupling_flow(cfg: CouplingFlowConfig = CouplingFlowConfig()) -> FlowSpec:
     """Diagonal base layer + ``cfg.num_layers`` affine coupling layers."""
 
-    # ---- fused-engine hooks (kernels/nuts_pallas.py flow mode) ----------
-    # Per layer the kernel receives pre-transposed 2-D operands so the
-    # chains-on-lanes [d, B] forward is straight MXU matmuls with no
-    # in-kernel transposes or >=1-D reshapes (Mosaic-hostile):
-    #   maskC [d,1], w1T [H,d], b1C [H,1],
-    #   w2sT [d,H], b2sC [d,1], w2tT [d,H], b2tC [d,1]   (w2 split by head)
-    # plus the diagonal base log_sigmaC [d,1], muC [d,1].
-
-    def pallas_pack(params):
-        arrs = []
-        for layer in params["layers"]:
-            m, w = layer["mask"], layer["net"]
-            d = m.shape[0]
-            arrs += [m[:, None], w["w1"].T, w["b1"][:, None],
-                     w["w2"][:, :d].T, w["b2"][:d][:, None],
-                     w["w2"][:, d:].T, w["b2"][d:][:, None]]
-        arrs += [params["log_sigma"][:, None], params["mu"][:, None]]
-        return arrs
-
-    def pallas_forward(arrs, z):
-        hp = jax.lax.Precision.HIGHEST
-        mm = lambda a, b: jax.lax.dot_general(
-            a, b, (((1,), (0,)), ((), ())), precision=hp)
-        ld = jnp.zeros((1, z.shape[1]), z.dtype)
-        i = 0
-        for _ in range(cfg.num_layers):
-            maskC, w1T, b1C, w2sT, b2sC, w2tT, b2tC = arrs[i:i + 7]
-            i += 7
-            mask = jax.lax.stop_gradient(maskC)   # structure, not a param
-            z_pass = z * mask
-            h = jnp.tanh(mm(w1T, z_pass) + b1C)
-            s = (cfg.max_scale * jnp.tanh((mm(w2sT, h) + b2sC) / cfg.max_scale)
-                 * (1.0 - mask))
-            t = (cfg.max_shift * jnp.tanh((mm(w2tT, h) + b2tC) / cfg.max_shift)
-                 * (1.0 - mask))
-            z = z_pass + (1.0 - mask) * (z * jnp.exp(s) + t)
-            ld = ld + jnp.sum(s, axis=0, keepdims=True)
-        log_sigmaC, muC = arrs[i], arrs[i + 1]
-        q = jnp.exp(log_sigmaC) * z + muC
-        return q, ld + jnp.sum(log_sigmaC)
-
     def forward(params, z):
         logdet = jnp.zeros((), z.dtype)
         for layer in params["layers"]:
@@ -296,5 +255,4 @@ def coupling_flow(cfg: CouplingFlowConfig = CouplingFlowConfig()) -> FlowSpec:
         return jax.tree.map(lambda new, old: jnp.where(ok, new, old),
                             new_params, params)
 
-    return FlowSpec(forward=forward, inverse=inverse, init=init, update=update,
-                    pallas_pack=pallas_pack, pallas_forward=pallas_forward)
+    return FlowSpec(forward=forward, inverse=inverse, init=init, update=update)

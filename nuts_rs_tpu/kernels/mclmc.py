@@ -1,6 +1,6 @@
 """Unadjusted Microcanonical Langevin Monte Carlo (MCLMC) kernel.
 
-TPU-native reformulation of nuts-rs ``src/mclmc.rs`` (Robnik, De Luca,
+Batched reformulation of nuts-rs ``src/mclmc.rs`` (Robnik, De Luca,
 Silverstein & Seljak 2023, experimental in the reference too): per draw,
 ``num_steps = round(subsample_freq * L / eps)`` leapfrog steps interleaved
 with isokinetic (or Gaussian OU) partial momentum refreshes, with the

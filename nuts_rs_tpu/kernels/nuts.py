@@ -1,6 +1,6 @@
 """Iterative No-U-Turn trajectory builder.
 
-TPU-native reformulation of the recursive doubling tree in nuts-rs
+Batched reformulation of the recursive doubling tree in nuts-rs
 ``src/nuts.rs:60-388``.  The recursion becomes ONE ``lax.while_loop`` whose
 body performs a single leapfrog step plus O(maxdepth) masked bookkeeping, so
 the whole draw is a single fused device computation that can be vmapped over
@@ -322,7 +322,7 @@ def _tree_body(c: _Carry, transform, logp_grad_fn, opts: NutsOptions,
         lambda new, old: jnp.where(diverged, new, old), div_info, c.div_info)
 
     # --- orbit collection (flow training; external_adapt_strategy.rs:93-128).
-    # In-bounds dynamic_update_slice row writes (the TPU-safe scatter form —
+    # In-bounds dynamic_update_slice row writes (the in-bounds scatter form —
     # the same pattern as the checkpoint stacks below).
     if opts.collect_orbit:
         cap = _orbit_cap(opts)
@@ -359,13 +359,13 @@ def _tree_body(c: _Carry, transform, logp_grad_fn, opts: NutsOptions,
     b_mid = c.b_mid.at[row_mid].set(d1)
 
     # --- U-turn checks, matvec form -----------------------------------------
-    # Two hardware facts shape this:
+    # Two facts shape this:
     # (1) trajectory-index ordering is not needed — within a doubling every
     #     state was created along ``direction``, so the reference's sorted
     #     criterion (transformed_hamiltonian.rs:617-638) reduces, for states
     #     (old, new) in creation order, to
     #       turning = (dir*(z_new-z_old).v_old < 0) | (dir*(z_new-z_old).v_new < 0)
-    # (2) traced-index row gathers are pathologically slow on TPU, so every
+    # (2) traced-index gathers of whole [d] rows are avoided, so every
     #     check is decomposed into inner products available from four
     #     [D+1,d]@[d] matvecs against the stacks, one small [D+1,d]@[d,D+1]
     #     gram matrix, cached per-row z.v scalars, and one-hot *scalar*

@@ -2,8 +2,7 @@
 
 The per-draw ``scan`` + nested ``while_loop`` formulation runs all chains in
 lock-step to the LONGEST trajectory of every draw, so with 1k+ vmapped chains
-most lanes idle (measured ~10-30x waste on TPU: mean tree depth ~2-3 vs
-maxdepth-sized stragglers).  This kernel instead runs ONE ``lax.while_loop``
+most lanes idle (mean tree depth ~2-3 vs maxdepth-sized stragglers).  This kernel instead runs ONE ``lax.while_loop``
 over leapfrog steps in which a chain that finishes its trajectory emits the
 draw and immediately begins the next one.  Total iterations become
 ``max_chain(total leapfrogs over K draws)``, which concentrates around the
@@ -65,8 +64,8 @@ class _AsyncCarry(NamedTuple):
 def _empty_out(K, dim, dtype):
     # K+1 rows: row K is a trash slot written by not-yet-finished iterations,
     # so every scatter index is in bounds.  (OOB mode="drop" scatters inside
-    # a while_loop are mishandled by the TPU backend: once any lane's index
-    # goes OOB, updates are lost — observed as silently missing draws.)
+    # a while_loop have lost updates on some XLA backends once any lane's
+    # index went OOB — observed as silently missing draws.)
     K = K + 1
     f = lambda: jnp.zeros(K, dtype)
     i = lambda: jnp.zeros(K, jnp.int32)
@@ -184,9 +183,9 @@ def nuts_run_async(
         o = c.out
         fisher = dsum(jnp.square(draw.z + draw.zg))
         # The [d]-row write uses a one-hot select: windowed scatters inside a
-        # vmapped while_loop silently drop a large fraction of updates on the
-        # TPU backend (observed ~37% all-zero rows); 1-element scatters on the
-        # scalar outputs behave correctly.
+        # vmapped while_loop have silently dropped a large fraction of
+        # updates on some XLA backends (all-zero rows); 1-element scatters on
+        # the scalar outputs behave correctly.
         row_mask = (jnp.arange(o.position.shape[0], dtype=jnp.int32)
                     == slot)[:, None]
         out = AsyncOut(

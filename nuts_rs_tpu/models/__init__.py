@@ -1,4 +1,4 @@
-from .model import Model, StreamSpec
+from .model import Model
 from . import gaussian
 from . import hierarchical
 from . import stochastic_volatility

@@ -9,12 +9,11 @@ regression used by the BASELINE configs.
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from ..parallel.axis import dsum
-from .model import Model, StreamSpec
+from .model import Model
 
 
 def normal_logp(dim: int, mu: float = 3.0) -> Model:
@@ -63,17 +62,7 @@ def correlated_normal_rank1(dim: int, scale: float = 1.5, eig: float = 1000.0) -
         proj = uu @ y
         return -0.5 * (y @ y + coef * proj * proj)
 
-    # Pallas kernels cannot capture array constants; ship u and the scale
-    # diagonal through the model-args VMEM channel (reductions instead of
-    # 1-D dots — Mosaic needs >= 2-D operands, and args arrive as [d, 1]).
-    def logp_args(q, uu, s):
-        y = q / jnp.sqrt(s[:, 0])
-        proj = jnp.sum(uu[:, 0] * y)
-        return -0.5 * (jnp.sum(y * y) + coef * proj * proj)
-
-    model = Model(logp_fn=logp, dim=dim, name=f"corr_normal_{dim}d",
-                  pallas_spec=(logp_args, (u[:, None], stds[:, None])))
-    return model
+    return Model(logp_fn=logp, dim=dim, name=f"corr_normal_{dim}d")
 
 
 def correlated_normal(dim: int, rank1_scale: float = 0.5) -> Model:
@@ -146,90 +135,29 @@ def eight_schools() -> Model:
     )
 
 
-def logistic_regression(n_data: int = 1000, dim: int = 100, seed: int = 0) -> Model:
-    """Bayesian logistic regression with standard-normal prior on weights."""
+def logistic_regression_data(n_data: int = 1000, dim: int = 100,
+                             seed: int = 0):
+    """Synthetic design matrix ``x`` [n_data, dim] and 0/1 labels ``y``
+    (f32 numpy) behind :func:`logistic_regression`."""
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(n_data, dim)).astype(np.float32)
     w_true = rng.normal(size=dim).astype(np.float32) / np.sqrt(dim)
     p = 1.0 / (1.0 + np.exp(-(x @ w_true)))
     y = (rng.uniform(size=n_data) < p).astype(np.float32)
+    return x, y
+
+
+def logistic_regression(n_data: int = 1000, dim: int = 100, seed: int = 0) -> Model:
+    """Bayesian logistic regression with standard-normal prior on weights."""
+    x, y = logistic_regression_data(n_data, dim, seed)
 
     def logp(q):
         xx = jnp.asarray(x, q.dtype)
         yy = jnp.asarray(y, q.dtype)
         logits = xx @ q
-        # log-likelihood of Bernoulli(sigmoid(logits)); MXU-friendly matvec.
+        # log-likelihood of Bernoulli(sigmoid(logits)); under vmap over
+        # chains the matvecs become [n, d]·[d, C] matmuls.
         ll = jnp.sum(yy * logits - jnp.logaddexp(0.0, logits))
         return ll - 0.5 * jnp.sum(q * q)
 
-    def logp_with_args(q, xx, yy):
-        # yy ships as (n, 1): Pallas TPU blocks must be >= 2-D.
-        logits = xx @ q
-        ll = jnp.sum(yy[:, 0] * logits - jnp.logaddexp(0.0, logits))
-        return ll - 0.5 * jnp.sum(q * q)
-
-    def logp_grad_batched(q, xx, yy):
-        # q: [d, B]; two MXU matmuls; closed-form Bernoulli-GLM gradient.
-        logits = jnp.dot(xx, q, preferred_element_type=jnp.float32)  # [N, B]
-        y1 = yy  # [N, 1]
-        ll = jnp.sum(y1 * logits - jnp.logaddexp(0.0, logits), axis=0)
-        logp = ll - 0.5 * jnp.sum(q * q, axis=0)
-        p = 1.0 / (1.0 + jnp.exp(-logits))
-        grad = jnp.dot(xx.T, y1 - p,
-                       preferred_element_type=jnp.float32) - q     # [d, B]
-        return logp, grad
-
-    # HBM-streaming form (StreamSpec): for n_data too large to replicate
-    # into VMEM the fused engine DMAs row tiles.  Rows are padded to a
-    # multiple of tile_rows with ZERO-WEIGHT rows (w=0) so the kernel never
-    # sees a partial tile and padding contributes exactly nothing to either
-    # the log-likelihood or the gradient.
-    #
-    # Mosaic requires every DMA'd window to be LANE-ALIGNED (trailing dim a
-    # multiple of 128), so (x, y, w) are packed into ONE [n, PCOLS] array:
-    # columns [0, dim) are x, column dim is y, column dim+1 is w, the rest
-    # zero.  One aligned DMA per tile replaces three unaligned ones, and the
-    # y/w/x unpacking runs as cheap masked vector ops on the loaded tile.
-    tile_rows = 512 if n_data >= 512 else 8
-    n_pad = (-n_data) % tile_rows
-    n_rows = n_data + n_pad
-    pcols = -(-(dim + 2) // 128) * 128
-    packed = np.zeros((n_rows, pcols), np.float32)
-    packed[:n_data, :dim] = x
-    packed[:n_data, dim] = y
-    packed[:n_data, dim + 1] = 1.0  # weight column: padding rows stay 0
-
-    def tile_eval(q, data):
-        # q: [d, B]; data: [T, PCOLS].  Two MXU contractions per tile — the
-        # forward matvec and the closed-form gradient back-contraction reuse
-        # the SAME VMEM-resident tile.  q is zero-extended to PCOLS rows so
-        # the packed y/w columns contract to exactly zero in the forward
-        # matmul; the back-contraction's extra rows are sliced off.
-        T = data.shape[0]
-        B = q.shape[1]
-        q_ext = jnp.concatenate(
-            [q, jnp.zeros((pcols - dim, B), jnp.float32)], axis=0)
-        logits = jnp.dot(data, q_ext,
-                         preferred_element_type=jnp.float32)        # [T, B]
-        col = jax.lax.broadcasted_iota(jnp.int32, (T, pcols), 1)
-        yt = jnp.sum(jnp.where(col == dim, data, 0.0),
-                     axis=1, keepdims=True)                          # [T, 1]
-        wt = jnp.sum(jnp.where(col == dim + 1, data, 0.0),
-                     axis=1, keepdims=True)                          # [T, 1]
-        ll = jnp.sum(wt * (yt * logits - jnp.logaddexp(0.0, logits)),
-                     axis=0, keepdims=True)                          # [1, B]
-        r = wt * (yt - 1.0 / (1.0 + jnp.exp(-logits)))               # [T, B]
-        grad_ext = jax.lax.dot_general(
-            data, r, (((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)                      # [PCOLS, B]
-        return ll, grad_ext[:dim]
-
-    def finalize(q, lp_acc, g_acc):
-        return (lp_acc[0] - 0.5 * jnp.sum(q * q, axis=0), g_acc - q)
-
-    return Model(logp_fn=logp, dim=dim, name=f"logreg_{dim}d",
-                 pallas_spec=(logp_with_args, (x, y[:, None])),
-                 pallas_logp_grad=(logp_grad_batched, (x, y[:, None])),
-                 pallas_stream=StreamSpec(
-                     args=(packed,), tile_rows=tile_rows,
-                     tile_eval=tile_eval, finalize=finalize))
+    return Model(logp_fn=logp, dim=dim, name=f"logreg_{dim}d")

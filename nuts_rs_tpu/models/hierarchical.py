@@ -20,11 +20,7 @@ Unconstrained vector ``q = [mu_a, beta, log_sigma, log_sigma_a, z_1..J]``
 (dim = J + 4); the HalfNormal priors contribute the usual ``+ log s``
 log-Jacobians.
 
-TPU notes: the XLA path evaluates the group effect with a gather
-(``a[groups]``); the fused-Pallas channel replaces it with a one-hot
-matmul ``G @ a`` (``G`` is the [N, J] group-indicator matrix shipped as a
-model arg) — gathers by index vector do not lower inside Mosaic kernels,
-while the indicator matmul rides the MXU.
+The group effect is evaluated with a gather (``a[groups]``).
 """
 
 from __future__ import annotations
@@ -68,11 +64,6 @@ def radon(y: np.ndarray | None = None, x: np.ndarray | None = None,
     N = y.shape[0]
     dim = J + 4
 
-    # one-hot group-indicator matrix for the Pallas channel (and usable by
-    # XLA too; the gather form is kept on the XLA path where it is cheaper)
-    G = np.zeros((N, J), np.float32)
-    G[np.arange(N), groups] = 1.0
-
     def _logp_parts(q, a_obs, yv):
         mu_a, beta, log_sigma, log_sigma_a = q[0], q[1], q[2], q[3]
         z = q[4:]
@@ -96,15 +87,6 @@ def radon(y: np.ndarray | None = None, x: np.ndarray | None = None,
         a_obs = a[jnp.asarray(groups)] + q[1] * jnp.asarray(x, q.dtype)
         return _logp_parts(q, a_obs, jnp.asarray(y, q.dtype))
 
-    def logp_args(q, Gm, xm, ym):
-        # Gm: [N, J] one-hot, xm/ym: [N, 1] covariate/observations — all
-        # model args (Pallas kernels cannot capture array constants).
-        mu_a, log_sigma_a = q[0], q[3]
-        z = q[4:]
-        a = mu_a + jnp.exp(log_sigma_a) * z
-        a_obs = Gm @ a + q[1] * xm[:, 0]
-        return _logp_parts(q, a_obs, ym[:, 0])
-
     def expand(key, q):
         mu_a, log_sigma_a = q[0], q[3]
         return {
@@ -119,8 +101,6 @@ def radon(y: np.ndarray | None = None, x: np.ndarray | None = None,
         logp_fn=logp,
         dim=dim,
         expand_fn=expand,
-        pallas_spec=(logp_args, (G, np.asarray(x, np.float32)[:, None],
-                                 np.asarray(y, np.float32)[:, None])),
         dims={"a": ("group",)},
         coords={"group": np.arange(J)},
         name=f"radon_J{J}",

@@ -1,6 +1,6 @@
 """User-facing model contract.
 
-TPU-native replacement for the reference's ``CpuLogpFunc``/``Model`` traits
+JAX replacement for the reference's ``CpuLogpFunc``/``Model`` traits
 (nuts-rs ``src/math/cpu_math.rs:885-970``, ``src/model.rs:18-37``).
 
 Instead of a stateful object with an explicit gradient output buffer, a model
@@ -17,57 +17,6 @@ from typing import Any, Callable, Mapping, Optional
 
 import jax
 import jax.numpy as jnp
-
-
-@dataclasses.dataclass(frozen=True)
-class StreamSpec:
-    """HBM-streaming data contract for the fused Pallas engine.
-
-    For data-heavy likelihoods (GLMs with large design matrices) whose
-    arrays exceed the VMEM-replication budget of ``pallas_logp_grad``: the
-    arrays stay in HBM and the kernel DMAs row tiles through a
-    double-buffered VMEM scratch, accumulating log-density and gradient
-    partials per tile — one HBM pass of the data per leapfrog evaluation
-    (the closed-form two-matmul GLM gradient reuses each tile for both the
-    forward contraction and the gradient back-contraction).
-
-    ``args``: arrays sharing one leading row axis, pre-padded to a multiple
-    of ``tile_rows`` (models encode padding as zero-weight rows — the
-    kernel never sees a partial tile).  ``tile_eval(q[d, B], *tiles) ->
-    (logp_part [1, B], grad_part [d, B])`` computes one tile's contribution;
-    ``finalize(q, logp_acc, grad_acc)`` adds the data-independent terms
-    (priors).  Everything must lower inside a Pallas kernel.
-    """
-
-    args: tuple
-    tile_rows: int
-    tile_eval: Callable
-    finalize: Callable
-
-    def __post_init__(self):
-        n = self.args[0].shape[0]
-        if n % self.tile_rows != 0:
-            raise ValueError(
-                f"stream args rows ({n}) must be a multiple of "
-                f"tile_rows ({self.tile_rows}); pad with zero-weight rows")
-        for a in self.args:
-            if a.shape[0] != n:
-                raise ValueError("all stream args must share the row axis")
-            # Mosaic requires DMA windows to be lane-aligned: an HBM->VMEM
-            # tile copy of a [T, c] window fails to compile on real TPUs
-            # unless c is a multiple of 128 ("Slice shape along dimension 1
-            # must be aligned to tiling").  Interpret mode (CPU tests) does
-            # not enforce this, so warn loudly here instead of failing late
-            # on hardware.  Pack columns into one zero-padded array (see
-            # models/gaussian.py logistic_regression) to align.
-            if a.ndim >= 2 and a.shape[-1] % 128 != 0:
-                import warnings
-
-                warnings.warn(
-                    f"StreamSpec arg with trailing dim {a.shape[-1]} is not "
-                    "128-lane aligned; the fused stream kernel will fail to "
-                    "compile on real TPUs (zero-pad the trailing dim to a "
-                    "multiple of 128)", stacklevel=2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,23 +49,6 @@ class Model:
     dims: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     coords: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     name: str = "model"
-    # Optional Pallas fast-path spec: (logp_fn(q, *args), args).  Pallas
-    # kernels cannot capture array constants, so models with data (GLMs,
-    # hierarchical likelihoods) expose it explicitly here; all other code
-    # paths keep using ``logp_fn``'s closure.
-    pallas_spec: Optional[tuple] = None
-    # Optional hand-written batched value-and-grad for the Pallas engine:
-    # (fn(q: f[d, B], *args) -> (logp f[B], grad f[d, B]), args).  Use when
-    # autodiff of ``pallas_spec`` produces ops Mosaic cannot lower (e.g.
-    # boolean transposes in some backward passes); closed-form GLM gradients
-    # also keep everything on the MXU.
-    pallas_logp_grad: Optional[tuple] = None
-    # Optional HBM-streaming form of the likelihood for the fused engine
-    # (see StreamSpec): used when the data arrays are too large for
-    # VMEM replication.  Models may provide both — the engine picks
-    # VMEM replication while the data fits (no DMA churn) and streaming
-    # beyond that.
-    pallas_stream: Optional["StreamSpec"] = None
     # Optional HOST-side expansion: ``expand_host_fn(positions[C, k, d]) ->
     # dict[str, np.ndarray[C, k, ...]]`` runs per chunk on numpy arrays and
     # may return ANY numpy dtype — including fixed-length strings ("<U...")
@@ -153,10 +85,11 @@ class Model:
         fused value-and-gradient evaluation; this is the hot call of the whole
         sampler (see SURVEY.md §3.2).
 
-        Traced under full-f32 matmul precision: TPU f32 matmuls default to
-        bfloat16 multiply passes, which corrupts Hamiltonian energies for
-        matmul-heavy densities (measured: biased logistic-regression
-        posteriors).  Scoped here — tree bookkeeping keeps the fast default.
+        Traced under full-f32 matmul precision: by default XLA may run f32
+        matmuls in reduced precision (TF32 on NVIDIA GPUs, ~10 mantissa
+        bits), which corrupts Hamiltonian energies for matmul-heavy
+        densities (biased logistic-regression posteriors).  Scoped here —
+        tree bookkeeping keeps the backend default.
         """
         with jax.default_matmul_precision("highest"):
             logp, grad = jax.value_and_grad(self.logp_fn)(q)

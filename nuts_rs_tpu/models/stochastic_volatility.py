@@ -56,9 +56,8 @@ def stochastic_volatility(returns: np.ndarray | None = None, T: int = 1000,
     T = r.shape[0]
     dim = T + 2
 
-    def logp_args(q, rr):
-        # rr ships as [T, 1] (Pallas kernels cannot capture array
-        # constants; 2-D model-arg blocks are the Mosaic-safe shape).
+    def logp(q):
+        rr = jnp.asarray(r, q.dtype)
         log_sigma, log_nu, eps = q[0], q[1], q[2:]
         sigma = jnp.exp(log_sigma)
         nu = jnp.exp(log_nu)
@@ -69,11 +68,8 @@ def stochastic_volatility(returns: np.ndarray | None = None, T: int = 1000,
         lp += -0.5 * jnp.sum(eps * eps)
         # Student-t observation model.
         h = sigma * jnp.cumsum(eps)
-        lp += jnp.sum(_student_t_logpdf(rr[:, 0], nu, jnp.exp(h / 2.0)))
+        lp += jnp.sum(_student_t_logpdf(rr, nu, jnp.exp(h / 2.0)))
         return lp
-
-    def logp(q):
-        return logp_args(q, jnp.asarray(r, q.dtype)[:, None])
 
     def expand(key, q):
         log_sigma, log_nu, eps = q[0], q[1], q[2:]
@@ -89,10 +85,6 @@ def stochastic_volatility(returns: np.ndarray | None = None, T: int = 1000,
         logp_fn=logp,
         dim=dim,
         expand_fn=expand,
-        # Fused-engine channel: the returns ship as a [T, 1] model arg so
-        # the logp lowers inside a pallas_call (dim = T+2 lands on the
-        # dim-on-lanes tier for realistic T).
-        pallas_spec=(logp_args, (np.asarray(r, np.float32)[:, None],)),
         dims={"volatility": ("time",)},
         coords={"time": np.arange(T)},
         name=f"stochastic_volatility_{T}",

@@ -1,6 +1,6 @@
 """Native (C++) runtime components, loaded via ctypes.
 
-The compute path is JAX/XLA/Pallas; the host-side I/O runtime around it is
+The compute path is JAX/XLA; the host-side I/O runtime around it is
 native C++ (mirroring the reference, whose entire runtime is Rust):
 ``trace_writer.cpp`` implements the async chunk writer with a bounded queue
 and worker threads (nuts-rs ``src/storage/zarr/async_impl.rs`` analog).

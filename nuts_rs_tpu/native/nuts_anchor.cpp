@@ -9,7 +9,7 @@
 // sampling, diagonal mass-matrix adaptation (fg/bg Welford, draw/grad
 // variance rule), and Nesterov dual averaging — run single-core on THIS
 // container's CPU at the reference bench configurations.  bench.py divides
-// the TPU engine's throughput by this measurement (`vs_baseline`), so the
+// the device engine's throughput by this measurement (`vs_baseline`), so the
 // ratio compares two native implementations of the same algorithm on the
 // hardware actually present, instead of the engine against itself.
 //

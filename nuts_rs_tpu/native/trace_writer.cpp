@@ -1,10 +1,10 @@
 // Async trace-chunk writer: the native I/O runtime of the framework.
 //
-// TPU-native counterpart of the reference's async storage backend
+// Native counterpart of the reference's async storage backend
 // (nuts-rs src/storage/zarr/async_impl.rs:33-981): a bounded write queue with
 // backpressure (max_queued_writes, async_impl.rs:365-400) drained by worker
 // threads that zlib-compress Zarr chunks and write them to disk, so the
-// Python host loop feeding the TPU never blocks on storage I/O.
+// Python host loop feeding the device never blocks on storage I/O.
 //
 // C ABI for ctypes; no Python.h dependency.
 //

@@ -2,13 +2,13 @@
 
 The second distribution axis of this framework (SURVEY.md §5 "long-context
 analog"; the reference's corresponding scale axis is its SIMD kernels benched
-to d=4567, ``/root/reference/benches/sample.rs:126``): for huge-d models the
+to d=4567, nuts-rs ``benches/sample.rs:126``): for huge-d models the
 parameter dimension of every state vector (q, g, z, zg, v, the checkpoint
 stacks, the mass matrix) is sharded over a mesh axis named ``"dim"``, and
 every contraction over the parameter axis — the U-turn dots, kinetic-energy
 norms, logdet sums, low-rank ``U^T rhs`` projections, and the model's own
 log-density reduction — becomes a device-local partial reduction followed by
-one ``lax.psum`` over that axis, riding ICI.
+one ``lax.psum`` over that axis.
 
 Mechanics: the kernels are written against :func:`dsum` / :func:`dfinish` /
 :func:`global_dim` / :func:`fold_dim_shard` instead of raw ``jnp.sum`` at

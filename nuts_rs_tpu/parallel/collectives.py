@@ -2,10 +2,10 @@
 
 The reference has NO distributed backend — its only parallelism is one rayon
 thread per chain with strictly per-chain adaptation (SURVEY.md §2.12,
-nuts-rs ``src/sampler.rs:1286-1326``).  This module is the TPU-native
+nuts-rs ``src/sampler.rs:1286-1326``).  This module is the
 component that replaces it: chains live on a ``Mesh`` axis, and adaptation
 statistics can optionally be POOLED across every chain on every chip with
-XLA collectives riding ICI (``psum``), which sharpens mass-matrix estimates
+XLA collectives (``psum``), which sharpens mass-matrix estimates
 early in warmup when each chain has seen only a few draws.
 """
 

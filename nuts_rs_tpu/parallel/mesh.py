@@ -1,9 +1,9 @@
 """Mesh construction and chain/dim-axis sharding helpers.
 
 Chains are the embarrassingly-parallel axis (the reference's rayon threads,
-``src/sampler.rs:1286-1326``); on TPU they shard over a ``Mesh`` axis named
-``"chains"`` with ``shard_map``, so each chip runs a vmapped block of chains
-and adaptation pooling (see ``collectives.py``) rides ICI.
+``src/sampler.rs:1286-1326``); here they shard over a ``Mesh`` axis named
+``"chains"`` with ``shard_map``, so each device runs a vmapped block of
+chains and adaptation pooling (see ``collectives.py``) runs as collectives.
 
 The second distribution axis is the parameter dimension: a 2-D mesh
 ``("chains", "dim")`` additionally shards every parameter-indexed state array
@@ -38,11 +38,8 @@ def make_mesh(n_devices: int | None = None) -> Mesh:
 def make_mesh_2d(n_chain_devices: int, n_dim_devices: int) -> Mesh:
     """2-D mesh: chains x parameter-dimension.
 
-    ``n_chain_devices * n_dim_devices`` devices are taken in order, so the
-    ``dim`` axis is innermost (fastest-varying) — on real slices that keeps
-    the per-leapfrog psums of the dim axis on adjacent ICI links while the
-    chains axis (which communicates only during adaptation pooling) spans
-    the slower hops.
+    ``n_chain_devices * n_dim_devices`` devices are taken in order, with
+    the ``dim`` axis innermost (fastest-varying).
     """
     n = n_chain_devices * n_dim_devices
     devices = np.asarray(jax.devices()[:n]).reshape(

@@ -2,7 +2,7 @@
 
 Mirrors nuts-rs ``src/storage/core.rs``: a ``StorageConfig`` creates a
 ``TraceStorage`` which accepts progressive writes and is finalized into a
-backend-specific result.  The TPU sampler produces draws in *chunks* (one
+backend-specific result.  The batched sampler produces draws in *chunks* (one
 device->host transfer per scan chunk, all chains at once) rather than one draw
 at a time, so the write granularity here is a chunk: ``record_chunk`` receives
 ``{name: array[chains, draws_in_chunk, ...]}``.

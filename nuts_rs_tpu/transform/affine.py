@@ -1,6 +1,6 @@
 """Affine (diagonal + optional low-rank) coordinate transformations.
 
-TPU-native equivalent of the reference's ``Transformation`` trait and its two
+JAX equivalent of the reference's ``Transformation`` trait and its two
 affine implementations (nuts-rs ``src/transform/transformation.rs:12-71``,
 ``src/transform/diagonal.rs``, ``src/transform/low_rank.rs``).
 

@@ -17,7 +17,7 @@ static Python objects chosen at trace time:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -61,16 +61,6 @@ class FlowSpec:
     inverse: Callable[[Any, jax.Array], tuple[jax.Array, jax.Array]]
     init: Callable[..., Any]
     update: Callable[..., Any]
-    # Optional fused-engine hooks (see kernels/nuts_pallas.py flow mode):
-    # ``pallas_pack(params) -> list[2-D arrays]`` flattens single-chain
-    # params into the kernel's VMEM-ref layout, and
-    # ``pallas_forward(arrays, z[d, B]) -> (q[d, B], logdet[1, B])`` is the
-    # chains-on-lanes batched forward written against that layout (pure jnp,
-    # Mosaic-lowerable, autodiff-safe).  None = the flow runs on the XLA
-    # path only.
-    pallas_pack: Optional[Callable[[Any], list]] = None
-    pallas_forward: Optional[Callable[[list, jax.Array],
-                                      tuple[jax.Array, jax.Array]]] = None
 
 
 class AffineOps:

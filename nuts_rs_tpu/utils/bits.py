@@ -1,7 +1,7 @@
 """Small integer bit-twiddling helpers used by the iterative NUTS tree.
 
 The reference implementation (nuts-rs ``src/nuts.rs:108-170``) builds its
-trajectory tree recursively.  Our TPU formulation replaces the recursion with a
+trajectory tree recursively.  Our batched formulation replaces the recursion with a
 flat loop over leapfrog steps; the implicit binary-tree structure is recovered
 from the *leaf index* within the current doubling via trailing-zero counts:
 

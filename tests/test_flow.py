@@ -166,78 +166,3 @@ def test_flow_async_posterior_chunk_invariance():
     assert abs(d.mean() - 3.0) < 0.15
     assert abs(d.std() - 1.0) < 0.2
     assert np.isfinite(np.asarray(tr_a.sample_stats["energy"])).all()
-
-
-def test_coupling_flow_pallas_posterior():
-    """Fused Pallas flow posterior (frozen pooled coupling flow in-kernel,
-    autodiffed through pallas_forward): same posterior as the XLA flow path
-    on the funnel, no divergence blowup, and per-draw energies finite."""
-    model = gaussian.funnel(4)
-    base = dict(num_tune=300, num_draws=300, num_chains=4, seed=2,
-                flow_spec=coupling_flow(CouplingFlowConfig(
-                    num_layers=2, hidden=16, train_steps=100)))
-    tr_p = nt.sample(model, nt.FlowNutsSettings(posterior_kernel="pallas",
-                                                **base), chunk_size=150)
-    tr_s = nt.sample(model, nt.FlowNutsSettings(posterior_kernel="sync",
-                                                **base), chunk_size=150)
-    for name, tr in (("pallas", tr_p), ("sync", tr_s)):
-        d = np.asarray(tr.posterior["position"])
-        assert np.isfinite(d).all(), name
-        assert abs(d[..., 0].mean()) < 1.5, (name, d[..., 0].mean())
-        assert np.isfinite(np.asarray(tr.sample_stats["energy"])).all(), name
-        div = np.asarray(tr.sample_stats["diverging"]).mean()
-        assert div < 0.25, (name, div)
-    # distributional agreement on the funnel's v-marginal spread
-    sp = np.asarray(tr_p.posterior["position"])[..., 0].std()
-    ss = np.asarray(tr_s.posterior["position"])[..., 0].std()
-    assert abs(sp - ss) < 0.8, (sp, ss)
-
-
-def test_pallas_forward_matches_reference_forward():
-    """The packed chains-on-lanes ``pallas_forward`` must be the SAME map as
-    the reference ``forward`` (values, logdet, and the z-space score used by
-    the fused kernel), for perturbed non-identity parameters.  f64 CPU."""
-    with jax.enable_x64(True):
-        cfg = CouplingFlowConfig(num_layers=3, hidden=8)
-        spec = coupling_flow(cfg)
-        d, B = 6, 5
-        key = jax.random.key(7)
-        q0 = jax.random.normal(key, (d,), jnp.float64)
-        params = spec.init(jax.random.key(1), d, q0, -q0)
-        params = _perturb_nets(params, 0.7, seed=3)
-
-        Z = jax.random.normal(jax.random.key(2), (d, B), jnp.float64)
-        q_pal, ld_pal = spec.pallas_forward(spec.pallas_pack(params), Z)
-        q_ref, ld_ref = jax.vmap(
-            lambda z: spec.forward(params, z), in_axes=1, out_axes=(1, 0))(Z)
-        np.testing.assert_allclose(np.asarray(q_pal), np.asarray(q_ref),
-                                   rtol=1e-12, atol=1e-12)
-        np.testing.assert_allclose(np.asarray(ld_pal[0]), np.asarray(ld_ref),
-                                   rtol=1e-12, atol=1e-12)
-
-        # z-space score: grad of sum_b [logp(F(z_b)) + logdet_b] column-wise
-        # through pallas_forward (what the fused kernel computes) vs the
-        # FlowOps vjp form used by the XLA path.
-        def logp_cols(q):  # funnel-ish nonlinear logp, columnwise [B]
-            return -0.5 * jnp.sum(jnp.square(q), axis=0) \
-                - 0.1 * jnp.sum(q ** 3, axis=0)
-
-        def fsum(z):
-            q, ld = spec.pallas_forward(spec.pallas_pack(params), z)
-            return jnp.sum(logp_cols(q) + ld[0])
-
-        zg_pal = jax.grad(fsum)(Z)
-
-        ops = FlowOps(spec)
-        t = FlowTransform(params=params, id=jnp.asarray(0, jnp.int32))
-
-        def lg(q):
-            lp = -0.5 * jnp.sum(jnp.square(q)) - 0.1 * jnp.sum(q ** 3)
-            return lp, jax.grad(
-                lambda qq: -0.5 * jnp.sum(jnp.square(qq))
-                - 0.1 * jnp.sum(qq ** 3))(q)
-
-        zg_ref = jax.vmap(
-            lambda z: ops.eval_from_z(t, z, lg)[3], in_axes=1, out_axes=1)(Z)
-        np.testing.assert_allclose(np.asarray(zg_pal), np.asarray(zg_ref),
-                                   rtol=1e-9, atol=1e-9)

@@ -1,11 +1,10 @@
-"""Hierarchical (radon-style) model family: oracle recovery + fused engine.
+"""Hierarchical (radon-style) model family: oracle recovery.
 
 The partial-pooling regression the nutpie/PyMC stack benchmarks; synthetic
 ground truth mu_a=1.5, sigma_a=0.3, beta=-0.7, sigma=0.8
 (models/hierarchical.py::generate_radon).
 """
 
-import jax.numpy as jnp
 import numpy as np
 
 import nuts_rs_tpu as nt
@@ -23,20 +22,3 @@ def test_radon_parameter_recovery():
     # group effects carry dims/coords into storage
     assert np.asarray(post["a"]).shape[-1] == 24
     assert not np.asarray(trace.sample_stats["diverging"]).any()
-
-
-def test_radon_fused_engine_matches_xla():
-    # pallas channel = one-hot matmul instead of the XLA gather; moments
-    # must agree between engines (interpret mode).
-    model = radon(J=12, n_per=8, seed=1)
-
-    def run(kernel):
-        return nt.sample(model, nt.DiagNutsSettings(
-            num_tune=200, num_draws=200, num_chains=4, seed=0,
-            posterior_kernel=kernel), dtype=jnp.float32)
-
-    tp, tx = run("pallas"), run("sync")
-    for name in ("mu_a", "beta", "sigma"):
-        a = np.asarray(tp.posterior[name])
-        b = np.asarray(tx.posterior[name])
-        assert abs(a.mean() - b.mean()) < 0.3 * max(a.std(), b.std(), 0.05), name

@@ -1,7 +1,7 @@
-"""Deterministic tree-decision equivalence of the fused NUTS kernels.
+"""Deterministic tree-decision equivalence of the NUTS device kernel.
 
-The device kernels (``kernels/nuts.py``'s while-loop and the fused Pallas
-engine) make their tree decisions with heavily optimized machinery:
+The device kernel (``kernels/nuts.py``'s while-loop) makes its tree
+decisions with heavily optimized machinery:
 trailing-zero span recovery, one-hot stack gathers, direction-form
 (creation-order) U-turn reductions.  These tests validate those decisions
 against a NAIVE reference tree builder that
@@ -11,8 +11,7 @@ against a NAIVE reference tree builder that
   (``is_turning``) on the actual stored endpoints — the reference semantics
   of nuts-rs ``src/nuts.rs:148-161``, and
 * consumes the *exact same uniform stream* as the kernel under test
-  (threefry calls replayed for the XLA kernel; the murmur3 hash stream for
-  the Pallas kernel in interpret mode),
+  (its threefry calls replayed),
 
 so depth / n_steps / selected index / divergence / turning must match
 DETERMINISTICALLY, draw by draw — not just in distribution.  (The recursive
@@ -256,256 +255,3 @@ def test_xla_kernel_matches_naive_tree(seed, step):
         np.testing.assert_allclose(float(info.sum_accept), want["sum_accept"],
                                    rtol=1e-7, atol=1e-9, err_msg=str(label))
         cur = got_pt
-
-
-# ---------------------------------------------------------------------------
-# Pallas kernel (interpret mode): replay the murmur3 hash stream.
-# ---------------------------------------------------------------------------
-#
-# The fused engine's _uniform sites get deterministic (salt, it) coordinates
-# at trace time: salts 1,2 = initial momentum u1/u2 (it=0), salt 3 = initial
-# direction (it=0); per loop iteration `it`: salt 4 = r_sel, salt 5 = r_acc,
-# salt 6 = next direction, salts 7,8 = fresh momentum u1/u2 (jitter=None
-# consumes no uniform).  All chains share the global iteration counter (the
-# engine is draw-asynchronous per chain), so the naive replica advances every
-# chain's tree state machine in lock-step over global iterations, consuming
-# column b of each site.  Arithmetic runs through eager jnp f32 ops — the
-# same XLA CPU implementations interpret mode executes — so decisions and
-# values must match bit-for-bit, draw by draw.
-
-from nuts_rs_tpu.kernels.nuts_pallas import _hash_bits, nuts_pallas_run
-
-
-class MurmurStream:
-    def __init__(self, seed):
-        self.seed = jnp.uint32(seed)
-
-    def uniform(self, shape, it, salt):
-        bits = _hash_bits(shape, self.seed, jnp.uint32(it), salt)
-        f = ((bits >> 8).astype(jnp.int32).astype(jnp.float32)
-             * (1.0 / (1 << 24)))
-        return jnp.clip(f, 1e-12, 1.0 - 1e-7)
-
-    def normals(self, shape, it, s1, s2):
-        u1 = self.uniform(shape, it, s1)
-        u2 = self.uniform(shape, it, s2)
-        return jnp.sqrt(-2.0 * jnp.log(u1)) * jnp.cos(2.0 * jnp.pi * u2)
-
-
-class _PallasChainSim:
-    """Per-chain replica of make_kernel's body() semantics (naive subtree
-    list + sorted-index U-turn checks, f32 jnp arithmetic)."""
-
-    def __init__(self, z0, zg0, logp0, v0, logdet, step, opts, K):
-        self.logdet, self.step, self.opts, self.K = logdet, step, opts, K
-        ke0 = 0.5 * float(jnp.sum(v0 * v0))
-        p0 = NaivePoint(z0, v0, zg0, float(logp0), ke0, 0)
-        self.e_init = ke0 - (float(logp0) + logdet)
-        self.edge = p0
-        self.p_minus = self.p_plus = p0
-        self.dm, self.logw_m = p0, 0.0
-        self.ds, self.logw_s = p0, -np.inf
-        self.depth = 0
-        self.subtree = []
-        self.n_steps = 0
-        self.s_acc = 0.0
-        self.direction = None   # set from the init-direction site
-        self.draws = []         # dicts per finished draw
-
-    def step_iter(self, r_sel, r_acc, new_dir_u, v_new, eval_z):
-        opts, D = self.opts, self.opts.maxdepth
-        f32 = np.float32
-        eps = f32(self.direction) * f32(self.step)
-        v1 = self.edge.v + (eps / f32(2.0)) * self.edge.zg
-        z1 = self.edge.z + eps * v1
-        logp1, zg1 = eval_z(z1)
-        v2 = v1 + (eps / f32(2.0)) * zg1
-        ke1 = float(jnp.sum(v2 * v2)) * 0.5
-        new = NaivePoint(z1, v2, zg1, float(logp1), ke1,
-                         self.edge.idx + self.direction)
-        err = (ke1 - (float(logp1) + self.logdet)) - self.e_init
-        diverged = (err > opts.max_energy_error) or not np.isfinite(err)
-        self.n_steps += 1
-        if not diverged:
-            self.s_acc += float(np.exp(min(-err, 0.0)))
-
-        logw_leaf = -err
-        if not self.subtree:
-            self.logw_s = logw_leaf
-            self.ds = new
-        else:
-            self.logw_s = np.logaddexp(self.logw_s, logw_leaf)
-            if np.log(float(r_sel)) < logw_leaf - self.logw_s:
-                self.ds = new
-        self.subtree.append(new)
-        leaf = len(self.subtree) - 1
-
-        turning_int = False
-        nxt = leaf + 1
-        tz_next = D if nxt == 0 else (nxt & -nxt).bit_length() - 1
-        for j in range(1, min(tz_next, D) + 1):
-            s = nxt - (1 << j)
-            a_first = self.subtree[s]
-            a_last = self.subtree[s + (1 << (j - 1)) - 1]
-            b_first = self.subtree[s + (1 << (j - 1))]
-            t = naive_turning(a_first, new, jnp)
-            if j >= 2:
-                t = t or naive_turning(a_last, new, jnp)
-                t = t or naive_turning(a_first, b_first, jnp)
-            if t:
-                turning_int = True
-        subtree_complete = len(self.subtree) == (1 << self.depth)
-
-        far = self.p_minus if self.direction > 0 else self.p_plus
-        near = self.p_plus if self.direction > 0 else self.p_minus
-        t_out = naive_turning(far, new, jnp)
-        t_nr = naive_turning(near, new, jnp)
-        t_b0 = naive_turning(far, self.subtree[0], jnp)
-        turning_top = t_out or (self.depth > 0 and (t_nr or t_b0))
-
-        do_merge = subtree_complete and not diverged and not turning_int
-        if do_merge:
-            if (self.logw_s >= self.logw_m
-                    or np.log(float(r_acc)) < self.logw_s - self.logw_m):
-                self.dm = self.ds
-            self.logw_m = np.logaddexp(self.logw_m, self.logw_s)
-            if self.direction > 0:
-                self.p_plus = new
-            else:
-                self.p_minus = new
-            self.depth += 1
-
-        turned = turning_int or (do_merge and turning_top)
-        tree_done = diverged or turned or self.depth >= D
-
-        if tree_done:
-            self.draws.append(dict(
-                depth=self.depth, diverging=diverged,
-                n_steps=self.n_steps, idx=self.dm.idx,
-                z=np.asarray(self.dm.z), sum_accept=self.s_acc,
-                maxdepth=self.depth >= D and not turned and not diverged,
-            ))
-            # fresh tree from the selected draw
-            new_dir = 1 if float(new_dir_u) < 0.5 else -1
-            ke_new = 0.5 * float(jnp.sum(v_new * v_new))
-            p = NaivePoint(self.dm.z, v_new, self.dm.zg, self.dm.logp,
-                           ke_new, 0)
-            self.e_init = ke_new - (self.dm.logp + self.logdet)
-            self.edge = p
-            self.p_minus = self.p_plus = p
-            self.dm, self.logw_m = p, 0.0
-            self.subtree, self.logw_s = [], -np.inf
-            self.depth = 0
-            self.n_steps = 0
-            self.s_acc = 0.0
-            self.direction = new_dir
-        elif do_merge:
-            new_dir = 1 if float(new_dir_u) < 0.5 else -1
-            jp = self.p_plus if new_dir > 0 else self.p_minus
-            self.edge = jp
-            self.subtree, self.logw_s = [], -np.inf
-            self.direction = new_dir
-        else:
-            self.edge = new
-
-
-@pytest.mark.parametrize("layout", ["cl", "ld"])
-@pytest.mark.parametrize("seed", [0, 7])
-def test_pallas_kernel_matches_naive_multidraw(seed, layout):
-    # Both state layouts of the fused engine replay the same naive builder
-    # bit-for-bit; the murmur3 stream shapes mirror the kernel's (per-chain
-    # scalar sites are flat-order identical between (1,C) and (C,1), vector
-    # sites transpose with the layout).
-    from nuts_rs_tpu.kernels.nuts import NutsOptions
-
-    dim, C, K = 3, 4, 4
-    f32 = jnp.float32
-    LD = layout == "ld"
-    MU = 0.5  # scalar: Pallas kernels cannot capture array constants
-
-    if LD:
-        def logp_grad_batched(q):  # [B, d] -> ([B], [B, d])
-            return -0.5 * jnp.sum((q - MU) ** 2, axis=1), -(q - MU)
-    else:
-        def logp_grad_batched(q):  # [d, B] -> ([B], [d, B])
-            return -0.5 * jnp.sum((q - MU) ** 2, axis=0), -(q - MU)
-
-    stds = jnp.broadcast_to(jnp.asarray([1.0, 0.5, 2.0], f32), (C, dim))
-    mean = jnp.zeros((C, dim), f32)
-    logdet = jnp.broadcast_to(jnp.sum(jnp.log(1.0 / stds[0])), (C,))
-    rng = np.random.default_rng(seed)
-    q0 = jnp.asarray(rng.normal(size=(C, dim)), f32)
-    logp0 = -0.5 * jnp.sum((q0 - MU) ** 2, axis=1)
-    g0 = -(q0 - MU)
-    step = jnp.full((C,), 0.35, f32)
-    opts = NutsOptions(maxdepth=5, max_energy_error=1000.0)
-
-    q_f, g_f, logp_f, draws, stats = nuts_pallas_run(
-        seed, q0, g0, logp0, stds, mean, logdet, step, step, K,
-        logp_grad_batched, opts, jitter=None, block=C, interpret=True,
-        layout=layout)
-
-    # ---- naive lock-step replica ----
-    VSH = (C, dim) if LD else (dim, C)
-    SSH = (C, 1) if LD else (1, C)
-
-    def vcol(x, b):  # per-chain vector from a VSH-shaped site
-        return x[b] if LD else x[:, b]
-
-    def scol(x, b):  # per-chain scalar from an SSH-shaped site
-        return x[b, 0] if LD else x[0, b]
-
-    ms = MurmurStream(seed)
-    v0 = ms.normals(VSH, 0, 1, 2)
-    dir0 = ms.uniform(SSH, 0, 3)
-
-    def eval_z_chain(b):
-        sb = stds[b].astype(f32)
-        mb = mean[b].astype(f32)
-
-        def ev(z):
-            q = z * sb + mb
-            logp = -0.5 * jnp.sum((q - f32(0.5)) ** 2)
-            g = -(q - f32(0.5))
-            return logp, g * sb
-        return ev
-
-    sims = []
-    for b in range(C):
-        z0 = (q0[b] - mean[b]) / stds[b]
-        zg0 = g0[b] * stds[b]
-        sim = _PallasChainSim(z0.astype(f32), zg0.astype(f32),
-                              float(logp0[b]), vcol(v0, b),
-                              float(logdet[b]),
-                              float(step[b]), opts, K)
-        sim.direction = 1 if float(scol(dir0, b)) < 0.5 else -1
-        sims.append(sim)
-
-    it = 0
-    while any(len(s.draws) < K for s in sims) and it < 4096:
-        it += 1
-        r_sel = ms.uniform(SSH, it, 4)
-        r_acc = ms.uniform(SSH, it, 5)
-        nd = ms.uniform(SSH, it, 6)
-        v_new = ms.normals(VSH, it, 7, 8)
-        for b, sim in enumerate(sims):
-            sim.step_iter(scol(r_sel, b), scol(r_acc, b), scol(nd, b),
-                          vcol(v_new, b), eval_z_chain(b))
-
-    for b, sim in enumerate(sims):
-        assert len(sim.draws) >= K, b
-        for k in range(K):
-            want = sim.draws[k]
-            label = (seed, b, k)
-            assert int(stats["depth"][b, k]) == want["depth"], label
-            assert int(stats["n_steps"][b, k]) == want["n_steps"], label
-            assert bool(stats["diverging"][b, k] > 0.5) == want["diverging"], label
-            assert int(stats["index_in_trajectory"][b, k]) == want["idx"], label
-            assert bool(stats["maxdepth_reached"][b, k] > 0.5) == want["maxdepth"], label
-            np.testing.assert_allclose(
-                float(stats["sum_accept"][b, k]), want["sum_accept"],
-                rtol=2e-6, atol=1e-7, err_msg=str(label))
-            want_q = want["z"] * np.asarray(stds[b]) + np.asarray(mean[b])
-            np.testing.assert_allclose(np.asarray(draws[b, k]), want_q,
-                                       rtol=2e-6, atol=1e-6,
-                                       err_msg=str(label))

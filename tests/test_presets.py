@@ -1,7 +1,7 @@
 """Every settings preset is constructible and can draw.
 
 Mirror of the reference's ``assert_settings_smoke`` suite
-(``/root/reference/src/sampler.rs:1621-1660``), which constructs each of the
+(nuts-rs ``src/sampler.rs:1621-1660``), which constructs each of the
 six presets (Diag/LowRank/Flow x Nuts/Mclmc) and samples a small normal
 target.  Flow presets use the cheap diagonal affine flow here to keep the CPU
 refits fast; the coupling flow is exercised in test_flow.py.

@@ -1,7 +1,7 @@
 """Property-based tests over adversarial float inputs.
 
-TPU-native analog of the reference's proptest suite
-(``/root/reference/src/math/util.rs:745-968`` + the pinned regressions in
+JAX analog of the reference's proptest suite
+(nuts-rs ``src/math/util.rs:745-968`` + the pinned regressions in
 ``proptest-regressions/math/util.txt``): every fused kernel is checked against
 an independent naive implementation over arbitrary f64 values INCLUDING
 NaN/Inf/denormals.  Where the reference compares SIMD vs scalar with a 32-ULP
@@ -341,8 +341,8 @@ def test_trailing_zeros_regressions(x, cap, expect):
 
 
 def test_uturn_row_index_derivation():
-    """Number-theoretic fact behind the fused kernels' U-turn restructure
-    (kernels/nuts_pallas.py round-4 rewrite): for a new leaf count
+    """Number-theoretic fact behind the NUTS kernel's U-turn row lookups
+    (kernels/nuts.py, trailing-zero rows): for a new leaf count
     n = leaf+1 with t = tz(n), every active check level j (1 <= j <= t)
     reads row rb = tz(n - 2^(j-1)) == j-1 ALWAYS, and row
     ra = tz(n - 2^j) == j for every j < t — i.e. only the boundary level

@@ -142,35 +142,6 @@ def test_checkpoint_resume(tmp_path):
                                   full.posterior["position"])
 
 
-def test_checkpoint_resume_pallas_engines(tmp_path):
-    """Bit-identical resume through the fused Pallas warmup + posterior
-    engines: their PRNG seeds derive from the global draw index at each
-    launch, so identical chunk boundaries reproduce identical streams.
-    (Unlike the threefry path, pallas draws are chunk-boundary-dependent by
-    design — engine docstring — so all three runs share chunk_size.)"""
-    import nuts_rs_tpu as nt
-    from nuts_rs_tpu.models import gaussian as g
-
-    model = g.normal_logp(4, mu=1.0)
-    settings = nt.DiagNutsSettings(num_tune=40, num_draws=40, num_chains=2,
-                                   seed=11, posterior_kernel="pallas")
-    full = nt.sample(model, settings, chunk_size=20)
-
-    s1 = nt.Sampler(model, settings, chunk_size=20)
-    s1.run_next_chunk()
-    s1.run_next_chunk()
-    ckpt = str(tmp_path / "state.npz")
-    s1.checkpoint(ckpt)
-
-    s2 = nt.Sampler(model, settings, chunk_size=20)
-    s2.restore(ckpt)
-    while not s2.finished:
-        s2.run_next_chunk()
-    resumed = s2.trace.finalize()
-    np.testing.assert_array_equal(resumed.posterior["position"],
-                                  full.posterior["position"])
-
-
 def test_async_posterior_kernel():
     import nuts_rs_tpu as nt
     from nuts_rs_tpu.models import gaussian as g
@@ -216,76 +187,16 @@ def test_exact_normal_kinetic_energy():
     assert not trace.sample_stats["diverging"].any()
 
 
-def test_pallas_posterior_kernel():
-    # Fused Pallas engine (interpret mode on CPU): same distribution as the
-    # XLA kernels on the standard normal target.
-    import nuts_rs_tpu as nt
-    from nuts_rs_tpu.models import gaussian as g
-
-    model = g.normal_logp(4, mu=2.0)
-    base = dict(num_tune=150, num_draws=150, num_chains=8, seed=17)
-    tr = sample(model, DiagNutsSettings(posterior_kernel="pallas", **base),
-                chunk_size=300)
-    d = tr.posterior["position"]
-    assert d.shape == (8, 150, 4)
-    assert abs(d.mean() - 2.0) < 0.12
-    assert abs(d.std() - 1.0) < 0.12
-    ss_ = tr.sample_stats
-    assert not ss_["diverging"].any()
-    acc = ss_["mean_tree_accept"]
-    assert 0.6 < acc.mean() <= 1.0
-    assert (ss_["n_steps"] >= 1).all()
-    assert ss_["depth"].max() <= 10
-
-
-def test_pallas_request_on_low_rank_falls_back():
-    # posterior_kernel='pallas' on a low-rank preset WARNS and uses the XLA
-    # kernels (the fused engine covers the diagonal transform; a fused
-    # per-chain low-rank path was measured 12-45x SLOWER than the XLA
-    # batched-matmul path on real v5e — per-chain matrices cannot ride the
-    # MXU in the chains-on-lanes layout, see BASELINE.md).  The request must
-    # not crash and the posterior must be correct.
-    import nuts_rs_tpu as nt
-    from nuts_rs_tpu.models import gaussian as g
-
-    model = g.correlated_normal_rank1(8, scale=1.5, eig=100.0)
-    with pytest.warns(UserWarning, match="measured slower than XLA"):
-        tr = sample(model, nt.LowRankNutsSettings(
-            posterior_kernel="pallas", num_tune=300, num_draws=400,
-            num_chains=8, seed=3,
-            low_rank=nt.LowRankSettings(max_rank=4)), chunk_size=700)
-    d = np.asarray(tr.posterior["position"])
-    assert abs(d.mean()) < 0.35
-    assert not np.asarray(tr.sample_stats["diverging"]).any()
-    acc = np.asarray(tr.sample_stats["mean_tree_accept"]).mean()
-    assert 0.6 < acc <= 1.0
-
-
-def test_pallas_demotion_warns_naming_setting():
-    # A fused-engine request that a setting disqualifies must warn (naming
-    # the setting), not silently run the sync path — VERDICT r3 weak #6:
-    # cross_chain_adaptation was the silent case.
-    import nuts_rs_tpu as nt
-    from nuts_rs_tpu.models import gaussian as g
-
-    model = g.normal_logp(3, mu=0.0)
-    s = nt.DiagNutsSettings(num_tune=10, num_draws=10, num_chains=4, seed=0,
-                            posterior_kernel="pallas",
-                            cross_chain_adaptation=True)
-    with pytest.warns(UserWarning, match="cross_chain_adaptation"):
-        nt.Sampler(model, s)
-
-
-def test_three_kernels_agree_statistically():
-    # sync / async / pallas posterior engines must produce the same posterior
-    # on a correlated target (different RNG streams, same distribution).
+def test_posterior_kernels_agree_statistically():
+    # sync / async posterior engines must produce the same posterior on a
+    # correlated target (different RNG streams, same distribution).
     import nuts_rs_tpu as nt
     from nuts_rs_tpu.models import gaussian as g
 
     model = g.correlated_normal(6, rank1_scale=0.5)
     base = dict(num_tune=200, num_draws=500, num_chains=8, seed=29)
     results = {}
-    for kernel in ("sync", "async", "pallas"):
+    for kernel in ("sync", "async"):
         tr = sample(model, DiagNutsSettings(posterior_kernel=kernel, **base),
                     chunk_size=700)
         d = tr.posterior["position"]
@@ -312,37 +223,6 @@ def test_pause_resume_api():
     sam.resume()
     trace = sam.run()
     assert trace.posterior["position"].shape == (2, 20, 3)
-
-
-def test_pallas_glm_model_args():
-    # Data-carrying model through the Pallas engine: logistic regression
-    # ships its design matrix via Model.pallas_logp_grad (hand-written
-    # closed-form batched gradient, verified against autodiff here) and the
-    # kernel's model_args VMEM channel.
-    import jax
-    import jax.numpy as jnp
-    import nuts_rs_tpu as nt
-    from nuts_rs_tpu.models import gaussian as g
-
-    model = g.logistic_regression(n_data=60, dim=6, seed=3)
-    # Hand gradient == autodiff gradient.
-    fn, args = model.pallas_logp_grad
-    q = jax.random.normal(jax.random.key(0), (6, 5))
-    logp_h, grad_h = fn(q, *[jnp.asarray(a) for a in args])
-    logp_a, grad_a = jax.vmap(model.logp_and_grad, in_axes=1, out_axes=(0, 1))(q)
-    np.testing.assert_allclose(np.asarray(logp_h), np.asarray(logp_a), rtol=1e-5)
-    np.testing.assert_allclose(np.asarray(grad_h), np.asarray(grad_a),
-                               rtol=1e-5, atol=1e-6)
-
-    base = dict(num_tune=150, num_draws=250, num_chains=8)
-    tr_p = sample(model, DiagNutsSettings(posterior_kernel="pallas", seed=5,
-                                          **base), chunk_size=400)
-    tr_s = sample(model, DiagNutsSettings(posterior_kernel="sync", seed=6,
-                                          **base), chunk_size=400)
-    mp = tr_p.posterior["position"].mean(axis=(0, 1))
-    ms = tr_s.posterior["position"].mean(axis=(0, 1))
-    assert not tr_p.sample_stats["diverging"].any()
-    np.testing.assert_allclose(mp, ms, atol=0.2)
 
 
 def test_mesh_public_api():

@@ -2,7 +2,7 @@
 
 The reference advances warmup windows by the per-chain count of GOOD
 (non-divergent) draws (src/adapt_strategy.rs:121-222); this framework
-advances by draw index (adapt/schedule.py, documented TPU-first deviation)
+advances by draw index (adapt/schedule.py, documented deviation)
 while per-chain is_good masks still gate which samples enter the estimators
 and the mass-matrix update keeps a per-chain `count >= 3` guard.  These
 tests pin what that deviation is allowed to cost: on a target where a large

@@ -1,6 +1,6 @@
 """Multi-device mesh tests on the virtual 8-device CPU mesh.
 
-Validates the TPU-native parallelism component (SURVEY.md §2.12): chains
+Validates the multi-device parallelism component (SURVEY.md §2.12): chains
 sharded over a ``Mesh`` axis with ``shard_map``, cross-chain adaptation
 statistics pooled with ``psum`` over the mesh axis.
 """

@@ -59,25 +59,3 @@ def test_zarr_roundtrip_with_time_coord(tmp_path):
     assert vol.shape == (2, 80, 50)
     time = read_array(os.path.join(path, "posterior", "time"))
     np.testing.assert_array_equal(time, np.arange(50))
-
-
-def test_sv_fused_engine_matches_xla():
-    # The SV model ships a pallas_spec (returns as a [T, 1] model arg), so
-    # posterior_kernel="pallas" runs it through the fused engine — at
-    # realistic T on the dim-on-lanes tier.  Interpret mode here; moments
-    # must agree with the XLA path.
-    import jax.numpy as jnp
-    import nuts_rs_tpu as nt
-
-    model = stochastic_volatility(T=62, seed=0)
-
-    def run(kernel):
-        s = nt.DiagNutsSettings(num_tune=150, num_draws=150, num_chains=4,
-                                seed=0, posterior_kernel=kernel)
-        return nt.sample(model, s, dtype=jnp.float32)
-
-    tp, tx = run("pallas"), run("sync")
-    for name in ("sigma", "nu"):
-        a = np.asarray(tp.posterior[name])
-        b = np.asarray(tx.posterior[name])
-        assert abs(a.mean() - b.mean()) < 0.35 * max(a.std(), b.std(), 0.05)

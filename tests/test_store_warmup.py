@@ -5,7 +5,7 @@ async_impl.rs:660-668 — "When false, only post-warmup samples are
 stored").  Two independent knobs here:
 
 * ``Sampler(store_warmup=False)`` / ``nt.sample(..., store_warmup=False)``
-  — TPU-native: for all-tuning chunks the draw/stat payload is dropped ON
+  — beyond the reference: for all-tuning chunks the draw/stat payload is dropped ON
   DEVICE (only the accounting planes cross the D2H link); mixed
   warmup/posterior chunks drop the tuning rows host-side.  Must not
   change the chain path (posterior bit-identical to a storing run).
